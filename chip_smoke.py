@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. probe: a CUDA device must be present; prints the card's name and power
    limit as ``nvidia-smi`` reports them;
-2. build: compiles ``flux_tpu_torch/csrc/sweep_megakernel.cu`` with nvcc and
-   prints the build seconds and the compiler's register report;
+2. build: compiles ``flux_tpu_torch/csrc/sweep_megakernel.cu`` (every
+   instantiation of the template) with nvcc and prints the build seconds
+   and the compiler's register report for each;
 3. kernel vs plain: demo2 at its full 800 width, an 8-row band, root 4,
    depth 5, seed 42, through the kernel and through its plain PyTorch
    version on the card; two kernel launches must be bitwise equal, and
@@ -26,14 +27,37 @@ Phases, in order; any failure exits non-zero before the result line:
 6. measurement at the main path's shapes (one 50-row band at 16384 spp):
    the kernel's time, its bound, and the plain version's time; the two
    results on that launch are held against each other at phase 3's gate,
-   and their max |diff| is the ``max_abs_err`` of the kernels line.
+   and their max |diff| is the ``max_abs_err`` of the kernels line;
+7. kernel vs plain for each new instantiation (stats, nee, physical,
+   nee+physical, nee+physical+stats) on an 8-row band of demo3 (demo2 for
+   stats and nee alone), at phase 3's gate, all 4 channels with stats;
+8. the quality paths, each through its entry point with the launch counts
+   set to 0 just before and read just after:
+   a. demo2 adaptive: ``cli scenes/demo2.yml -r 32 -d 5 --progressive 64
+      --adaptive 0.12`` must stop at 768 spp with a p99 relative stderr
+      within 5e-4 of the JAX package's 0.11675 (artifacts/bench_extra.json);
+   b. demo2 NEE: ``cli scenes/demo2.yml -r 32 -d 5 --nee``, against the
+      16384-spp frame of phase 5's reference PNG;
+   c. demo3 physical MIS: Renderer(nee, physical) frames at 16 spp (seed 0)
+      and 1024 spp (seed 7, the truth); their MSE must be within 2% of the
+      JAX package's 0.002073 (artifacts/bench_extra.json);
+   d. demo3 physical without NEE: ``cli scenes/demo3.yml -r 16 -d 5
+      --physical``, against the MIS truth;
+   e. demo3 progressive with a checkpoint: 2 passes of 64 through
+      ProgressiveRenderer, saved, then finished by ``cli scenes/demo3.yml
+      -r 32 -d 5 --nee --physical --progressive 64 --checkpoint <file>
+      --resume``; the accumulators must be bitwise equal to the CLI's
+      uninterrupted run;
+9. measurement of each new instantiation at its path's launch shape, as
+   in phase 6.
 
-It ends with a ``{"kernels": [...]}`` line and then the result line
-``{"ok": true, "device": {...}}``.
+It ends with a ``{"kernels": [...]}`` line (one entry per instantiation)
+and then the result line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -46,10 +70,20 @@ import numpy as np
 import torch
 
 from flux_tpu_torch.camera import camera_tensors
+from flux_tpu_torch.checkpoint import ProgressiveRenderer, load_checkpoint
 from flux_tpu_torch.cli import run as cli_run
 from flux_tpu_torch.image import read_ppm
 from flux_tpu_torch.ops import build
-from flux_tpu_torch.ops.sweep_kernel import flops_lower_bound, render_block_sweep
+from flux_tpu_torch.ops.nee import extract_lights
+from flux_tpu_torch.ops.sweep_kernel import (
+    FluxLights,
+    FluxScene,
+    config_name,
+    flops_lower_bound,
+    n_counts,
+    render_block_sweep,
+    reset_launch_counts,
+)
 from flux_tpu_torch.render import Renderer, finalize, plan_chunks, render_block
 from flux_tpu_torch.scene import compile_scene, load_scene
 
@@ -104,21 +138,31 @@ def event_ms(fn, reps: int) -> list:
     return times
 
 
-def phase_kernel_vs_plain(dev) -> dict:
-    sd = load_scene(os.path.join(HERE, "scenes", "demo2.yml"))
-    scene = compile_scene(sd, dev)
+def scene_on(dev, name: str):
+    """(SceneData, SceneTensors, CameraTensors) of a stock scene on ``dev``."""
+    sd = load_scene(os.path.join(HERE, "scenes", f"{name}.yml"))
     cam = camera_tensors(sd.camera_settings, sd.camera_data, sd.output_settings.pixel_size, dev)
-    kw = dict(img_w=800, img_h=600, n_rows=8, root=4, max_depth=5)
+    return sd, compile_scene(sd, dev), cam
+
+
+def phase_kernel_vs_plain(dev, name="demo2", nee=False, physical=False, stats=False) -> dict:
+    """An 8-row band at full width, root 4, depth 5, seed 42, through the
+    kernel's instantiation (stats, nee, physical) and its plain version."""
+    sd, scene, cam = scene_on(dev, name)
+    lights = extract_lights(sd, dev) if nee else None
+    kw = dict(img_w=800, img_h=600, n_rows=8, root=4, max_depth=5, lights=lights, physical=physical,
+              with_stats=stats)
     row0, seed = 296, 42
     k1 = render_block_sweep(scene, cam, row0, 0, seed, n_samples=16, **kw)
     k2 = render_block_sweep(scene, cam, row0, 0, seed, n_samples=16, **kw)
     torch.cuda.synchronize()
-    check(torch.equal(k1.view(torch.int32), k2.view(torch.int32)), "two kernel launches differ")
+    what = f"{config_name(stats, nee, physical)} on {name}"
+    check(torch.equal(k1.view(torch.int32), k2.view(torch.int32)), f"{what}: two kernel launches differ")
     plain = render_block(scene, cam, row0, 0, seed, n_samples=16, **kw)
     band_ms = event_ms(lambda: render_block_sweep(scene, cam, row0, 0, seed, n_samples=16, **kw), 3)
     band_plain_ms = event_ms(lambda: render_block(scene, cam, row0, 0, seed, n_samples=16, **kw), 3)
     d = (k1 - plain).abs()
-    fd = (finalize(k1, root=4) - finalize(plain, root=4)).abs()
+    fd = (finalize(k1[..., :3], root=4) - finalize(plain[..., :3], root=4)).abs()
     res = {
         "max_abs_diff": float(d.max()),
         "mean_abs_diff": float(d.mean()),
@@ -129,16 +173,16 @@ def phase_kernel_vs_plain(dev) -> dict:
         "kernel_ms": band_ms,
         "plain_ms": band_plain_ms,
     }
-    log("kernel vs plain (demo2, 8x800, root 4, depth 5, seed 42):", json.dumps(res))
-    check(res["finalized_mean_abs_diff"] < 1e-3, "kernel vs plain: mean |diff| >= 1e-3")
-    check(res["finalized_frac_over_5e-3"] < 0.01, "kernel vs plain: >= 1% of values off by > 5e-3")
+    log(f"kernel vs plain ({what}, 8x800, root 4, depth 5, seed 42):", json.dumps(res))
+    check(res["finalized_mean_abs_diff"] < 1e-3, f"kernel vs plain, {what}: mean |diff| >= 1e-3")
+    check(res["finalized_frac_over_5e-3"] < 0.01, f"kernel vs plain, {what}: >= 1% of values off by > 5e-3")
     # Sample ranges add up: [0, 8) + [8, 16) == [0, 16), to float32 rounding.
     parts = render_block_sweep(scene, cam, row0, 0, seed, n_samples=8, **kw) + render_block_sweep(
         scene, cam, row0, 8, seed, n_samples=8, **kw
     )
     rel = float(((parts - k1).abs() / k1.abs().clamp_min(1e-30)).max())
-    log(f"s0 split: max relative diff of [0,8)+[8,16) vs [0,16): {rel:.3e}")
-    check(rel <= 1e-5, "s0 split disagrees beyond 1e-5 relative")
+    log(f"s0 split, {what}: max relative diff of [0,8)+[8,16) vs [0,16): {rel:.3e}")
+    check(rel <= 1e-5, f"s0 split, {what}: disagrees beyond 1e-5 relative")
     return res
 
 
@@ -158,9 +202,21 @@ def phase_goldens(dev) -> None:
         check(abs(float(img.mean()) - float(golden.mean())) < 1e-3, f"golden {name}: mean shift")
 
 
+def png_levels(path: str) -> np.ndarray:
+    """An 8-bit PNG as int32 levels."""
+    from PIL import Image as PILImage
+
+    return np.asarray(PILImage.open(path), np.int32)
+
+
+def levels(img: np.ndarray) -> np.ndarray:
+    """A frame as 8-bit levels, rounded as the PNG writer rounds."""
+    return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.int32)
+
+
 def phase_main_path(out_dir: str, card: str) -> dict:
     argv = ["scenes/demo2.yml", "-r", "128", "-d", "5", "--seed", "0", "--output-dir", out_dir]
-    render_block_sweep.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     # cli.run is cli.main without the exit code: it also returns its timings.
     ran = cli_run([os.path.join(HERE, argv[0]), *argv[1:]])
@@ -168,6 +224,7 @@ def phase_main_path(out_dir: str, card: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = render_block_sweep.launches
     check(launches > 0, "the main path launched no sweep megakernel")
+    check(dict(render_block_sweep.launches_by_config) == {"sweep": launches}, "the main path left K1")
     path = os.path.join(out_dir, "demo2.ppm")
     check(ran["out"] == path, f"the CLI wrote {ran['out']}, not {path}")
     with open(path, "rb") as f:
@@ -178,11 +235,7 @@ def phase_main_path(out_dir: str, card: str) -> dict:
     samples = 800 * 600 * 128 * 128
     check(ran["samples"] == samples, f"the CLI rendered {ran['samples']} samples, not {samples}")
     # The JAX package's render of this frame and seed (bench.py), as 8-bit PNG.
-    from PIL import Image as PILImage
-
-    ref = np.asarray(PILImage.open(os.path.join(HERE, "artifacts", "demo2_16384spp.png")), np.int32)
-    mine = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.int32)
-    d = np.abs(mine - ref)
+    d = np.abs(levels(img) - png_levels(os.path.join(HERE, "artifacts", "demo2_16384spp.png")))
     res = {
         "cli_seconds": seconds,
         "msamples_per_s": samples / seconds / 1e6,
@@ -199,42 +252,55 @@ def phase_main_path(out_dir: str, card: str) -> dict:
     return res
 
 
-def phase_measure(dev) -> dict:
-    """The kernel at the main path's launch shape: one 50-row band of demo2
-    at 16384 spp, depth 5, seed 0 (rows 300-349, one of the CLI's bands)."""
-    sd = load_scene(os.path.join(HERE, "scenes", "demo2.yml"))
-    scene = compile_scene(sd, dev)
-    cam = camera_tensors(sd.camera_settings, sd.camera_data, sd.output_settings.pixel_size, dev)
-    kw = dict(img_w=800, img_h=600, n_rows=50, n_samples=16384, root=128, max_depth=5)
-    n_pix = 50 * 800
-    counts = torch.empty(n_pix, dtype=torch.int32, device=dev)
-    render_block_sweep(scene, cam, 300, 0, 0, bounce_counts=counts, **kw)
+def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physical=False,
+                   stats=False, frame=False) -> dict:
+    """One of a path's launches (seed 0, depth 5, full width): the kernel's
+    time, its bound from the kernel's own work counters, the plain
+    version's time on the same launch, and the two results held against
+    each other at phase 3's gate. ``frame`` also times a whole frame of
+    such launches, as the CLI makes them."""
+    sd, scene, cam = scene_on(dev, name)
+    lights = extract_lights(sd, dev) if nee else None
+    kw = dict(img_w=800, img_h=600, n_rows=n_rows, n_samples=n_samples, root=root, max_depth=5,
+              lights=lights, physical=physical, with_stats=stats)
+    n_pix = n_rows * 800
+    nc = n_counts(nee, physical)
+    counts = torch.empty((n_pix,) if nc == 1 else (nc, n_pix), dtype=torch.int32, device=dev)
+    render_block_sweep(scene, cam, row0, 0, 0, bounce_counts=counts, **kw)
     torch.cuda.synchronize()
-    n_bounces = int(counts.to(torch.int64).sum())
-    n_samples = n_pix * 16384
-    flops = flops_lower_bound(scene, n_samples, n_bounces)
-    bytes_moved = 3 * n_pix * 4 + 4 * 1024  # radiance out + the scene constants in
+    work = counts.to(torch.int64).reshape(nc, n_pix).sum(dim=1).tolist() + [0] * (5 - nc)
+    samples = n_pix * n_samples
+    flops = flops_lower_bound(
+        scene, samples, work[0], with_stats=stats, physical=physical, light_samples=work[1],
+        shadow_rays=work[2], reverse_densities=work[3], glossy_lobes=work[4],
+    )
+    # Radiance (and Σ lum²) out; the scene and light constants in.
+    bytes_moved = (4 if stats else 3) * n_pix * 4 + ctypes.sizeof(FluxScene) + (
+        ctypes.sizeof(FluxLights) if nee else 0)
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    kernel_ms = event_ms(lambda: render_block_sweep(scene, cam, 300, 0, 0, **kw), 3)
-    k = render_block_sweep(scene, cam, 300, 0, 0, **kw)
-    # A whole frame of kernel launches, as the CLI makes them (12 bands).
-    frame_ms = event_ms(lambda: [render_block_sweep(scene, cam, r, 0, 0, **kw) for r in range(0, 600, 50)], 1)[0]
+    kernel_ms = event_ms(lambda: render_block_sweep(scene, cam, row0, 0, 0, **kw), 3)
+    k = render_block_sweep(scene, cam, row0, 0, 0, **kw)
+    frame_ms = None
+    if frame:
+        frame_ms = event_ms(
+            lambda: [render_block_sweep(scene, cam, r, 0, 0, **kw) for r in range(0, 600, n_rows)], 1)[0]
     # The plain version on the same launch, in chunks of ~4M lanes.
     chunk = max(1, (4 << 20) // n_pix)
     plain_out = []
 
     def plain():
         acc = None
-        for s0, n in plan_chunks(16384, chunk):
-            part = render_block(scene, cam, 300, s0, 0, **{**kw, "n_samples": n})
+        for s0, n in plan_chunks(n_samples, chunk):
+            part = render_block(scene, cam, row0, s0, 0, **{**kw, "n_samples": n})
             acc = part if acc is None else acc + part
         plain_out.append(acc)
 
     plain_ms = event_ms(plain, 1)[0]
     p = plain_out[0]
     d = (k - p).abs()
-    fd = (finalize(k, root=128) - finalize(p, root=128)).abs()
+    fd = (finalize(k[..., :3], root=root) - finalize(p[..., :3], root=root)).abs()
+    what = f"{config_name(stats, nee, physical)}, {name} band {n_rows}x800 at row {row0}, {n_samples} spp"
     cmp = {
         "max_abs_diff": float(d.max()),
         "mean_abs_diff": float(d.mean()),
@@ -244,23 +310,188 @@ def phase_measure(dev) -> dict:
         "finalized_mean_abs_diff": float(fd.mean()),
         "finalized_frac_over_5e-3": float((fd > 5e-3).float().mean()),
     }
-    log("kernel vs plain (demo2 band 50x800 at row 300, 16384 spp, depth 5, seed 0):", json.dumps(cmp))
-    check(cmp["finalized_mean_abs_diff"] < 1e-3, "kernel vs plain at 16384 spp: mean |diff| >= 1e-3")
-    check(cmp["finalized_frac_over_5e-3"] < 0.01, "kernel vs plain at 16384 spp: >= 1% of values off by > 5e-3")
+    log(f"kernel vs plain ({what}, depth 5, seed 0):", json.dumps(cmp))
+    check(cmp["finalized_mean_abs_diff"] < 1e-3, f"kernel vs plain, {what}: mean |diff| >= 1e-3")
+    check(cmp["finalized_frac_over_5e-3"] < 0.01, f"kernel vs plain, {what}: >= 1% of values off by > 5e-3")
     res = {
         "vs_plain": cmp,
         "kernel_ms": kernel_ms,
         "frame_kernel_ms": frame_ms,
         "plain_ms": plain_ms,
-        "bounces": n_bounces,
-        "samples": n_samples,
-        "bounces_per_sample": n_bounces / n_samples,
+        "bounces": work[0],
+        "samples": samples,
+        "bounces_per_sample": work[0] / samples,
+        "work_counts": work,
         "flops_lower_bound": flops,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "shape": f"{name} band {n_rows}x800 px, {n_samples} spp, depth 5",
     }
-    log("measure (demo2 band 50x800, 16384 spp, depth 5):", json.dumps(res))
+    log(f"measure ({what}):", json.dumps(res))
     return res
+
+
+def phase_measure(dev) -> dict:
+    """The kernel at the main path's launch shape: one 50-row band of demo2
+    at 16384 spp, depth 5, seed 0 (rows 300-349, one of the CLI's bands)."""
+    return measure_launch(dev, "demo2", row0=300, n_rows=50, n_samples=16384, root=128, frame=True)
+
+
+# The JAX package's estimator values on these paths (bench.py on a TPU,
+# artifacts/bench_extra.json): image statistics of bit-identical sample
+# streams, not speeds.
+ADAPTIVE_SPP, ADAPTIVE_P99 = 768, 0.11675
+MIS_MSE = 0.002073
+
+# Phase 7: (scene, nee, physical, stats) of each new instantiation's check.
+CONFIGS = [
+    ("demo3", False, False, True),
+    ("demo2", True, False, False),
+    ("demo3", True, False, False),
+    ("demo3", False, True, False),
+    ("demo3", True, True, False),
+    ("demo3", True, True, True),
+]
+
+
+def run_path(label: str, fn):
+    """Drive one path with every launch count set to 0 just before it;
+    returns its result and the launches by instantiation just after."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(render_block_sweep.launches_by_config)
+    log(f"path {label}: {seconds:.3f} s, launches {json.dumps(launches)}")
+    return res, launches, seconds
+
+
+def phase_paths(dev, out_dir: str) -> dict:
+    """Phase 8: the quality paths through their entry points."""
+    demo2 = os.path.join(HERE, "scenes", "demo2.yml")
+    demo3 = os.path.join(HERE, "scenes", "demo3.yml")
+    launches = {}
+
+    # a. demo2 adaptive.
+    ran, n, secs = run_path("demo2 adaptive", lambda: cli_run(
+        [demo2, "-r", "32", "-d", "5", "--progressive", "64", "--adaptive", "0.12", "--seed", "0",
+         "--output-dir", os.path.join(out_dir, "adaptive")]))
+    adaptive = {"spp_done": ran["spp_done"], "p99_rel_stderr": ran["p99_rel_stderr"], "seconds": secs,
+                "launches": n}
+    log("demo2 adaptive (cli -r 32 -d 5 --progressive 64 --adaptive 0.12):", json.dumps(adaptive))
+    check(set(n) == {"sweep+stats"}, "demo2 adaptive: not all launches were the stats kernel")
+    check(ran["spp_done"] == ADAPTIVE_SPP, f"demo2 adaptive stopped at {ran['spp_done']}, not {ADAPTIVE_SPP} spp")
+    check(abs(ran["p99_rel_stderr"] - ADAPTIVE_P99) <= 5e-4, "demo2 adaptive: p99 rel stderr off by > 5e-4")
+    launches.update(n)
+
+    # b. demo2 NEE against the 16384-spp reference-transport frame.
+    ran, n, secs = run_path("demo2 nee", lambda: cli_run(
+        [demo2, "-r", "32", "-d", "5", "--nee", "--seed", "0", "--output-dir", os.path.join(out_dir, "nee")]))
+    img = read_ppm(ran["out"])
+    check(img.shape == (600, 800, 3) and np.isfinite(img).all(), "demo2 nee: bad PPM")
+    d = np.abs(levels(img) - png_levels(os.path.join(HERE, "artifacts", "demo2_16384spp.png")))
+    nee = {"seconds": secs, "band_loop_seconds": ran["band_seconds"], "launches": n,
+           "vs_16384spp_png_mean_abs_levels": float(d.mean()),
+           "vs_16384spp_png_frac_over_8_levels": float((d > 8).mean())}
+    log("demo2 nee (cli -r 32 -d 5 --nee) vs the 16384-spp frame:", json.dumps(nee))
+    check(set(n) == {"sweep+nee"}, "demo2 nee: not all launches were the NEE kernel")
+    check(nee["vs_16384spp_png_mean_abs_levels"] < 3.0, "demo2 nee: frame far from the reference frame")
+    launches.update(n)
+
+    # c. demo3 physical MIS: 16 spp against a 1024-spp truth.
+    def mis():
+        sd3 = load_scene(demo3)
+        truth = Renderer(sd3, 32, 5, seed=7, device=dev, nee=True, physical=True).render_image(rows_per_band=600)
+        img16 = Renderer(sd3, 4, 5, seed=0, device=dev, nee=True, physical=True).render_image(rows_per_band=600)
+        return truth, img16
+
+    (truth, img16), n, secs = run_path("demo3 mis", mis)
+    check(np.isfinite(truth).all() and np.isfinite(img16).all(), "demo3 mis: non-finite pixels")
+    mse = float(((img16 - truth) ** 2).mean())
+    mis_res = {"seconds": secs, "launches": n, "mse_16spp_vs_1024spp": mse, "jax_mse": MIS_MSE,
+               "rel_diff": mse / MIS_MSE - 1.0}
+    log("demo3 physical MIS (16 spp seed 0 vs 1024 spp seed 7):", json.dumps(mis_res))
+    check(set(n) == {"sweep+nee+physical"}, "demo3 mis: not all launches were the MIS kernel")
+    check(abs(mse / MIS_MSE - 1.0) <= 0.02, "demo3 mis: MSE more than 2% off the JAX package's")
+    launches.update(n)
+
+    # d. demo3 physical transport without NEE, against the MIS truth.
+    ran, n, secs = run_path("demo3 physical", lambda: cli_run(
+        [demo3, "-r", "16", "-d", "5", "--physical", "--seed", "0",
+         "--output-dir", os.path.join(out_dir, "physical")]))
+    img = read_ppm(ran["out"])
+    check(img.shape == (600, 800, 3) and np.isfinite(img).all(), "demo3 physical: bad PPM")
+    phys = {"seconds": secs, "launches": n, "mse_vs_mis_truth": float(((img - truth) ** 2).mean()),
+            "mean": float(img.mean()), "truth_mean": float(truth.mean())}
+    log("demo3 physical (cli -r 16 -d 5 --physical) vs the MIS truth:", json.dumps(phys))
+    check(set(n) == {"sweep+physical"}, "demo3 physical: not all launches were the physical kernel")
+    check(abs(phys["mean"] / phys["truth_mean"] - 1.0) < 0.1, "demo3 physical: mean far from the MIS truth")
+    launches.update(n)
+
+    # e. demo3 progressive with a checkpoint, resumed through the CLI.
+    ck = os.path.join(out_dir, "demo3.ckpt.npz")
+    whole_ck = os.path.join(out_dir, "demo3-whole.ckpt.npz")
+    cli_args = [demo3, "-r", "32", "-d", "5", "--nee", "--physical", "--progressive", "64", "--seed", "0"]
+
+    def progressive():
+        pr = ProgressiveRenderer(load_scene(demo3), 32, 5, seed=0, device=dev, nee=True, physical=True)
+        pr.render_pass(64)
+        pr.render_pass(64)
+        pr.save(ck)
+        resumed = cli_run(cli_args + ["--checkpoint", ck, "--resume", "--output-dir", os.path.join(out_dir, "r")])
+        whole = cli_run(cli_args + ["--checkpoint", whole_ck, "--output-dir", os.path.join(out_dir, "w")])
+        return resumed, whole
+
+    (resumed, whole), n, secs = run_path("demo3 progressive", progressive)
+    a, b = load_checkpoint(ck), load_checkpoint(whole_ck)
+    prog = {"seconds": secs, "launches": n, "resumed_spp": resumed["spp_done"], "whole_spp": whole["spp_done"],
+            "acc_bitwise_equal": bool(np.array_equal(a[0].view(np.int32), b[0].view(np.int32))),
+            "lum_sq_bitwise_equal": bool(np.array_equal(a[3].view(np.int32), b[3].view(np.int32))),
+            "pass_loop_seconds_whole": whole["band_seconds"]}
+    log("demo3 progressive (2 passes saved, resumed by the CLI) vs uninterrupted:", json.dumps(prog))
+    check(set(n) == {"sweep+nee+physical+stats"}, "demo3 progressive: not all launches were the MIS+stats kernel")
+    check(a[1] == b[1] == 1024 and a[2] == b[2], "demo3 progressive: checkpoints disagree on samples or fingerprint")
+    check(prog["acc_bitwise_equal"] and prog["lum_sq_bitwise_equal"], "demo3 progressive: resumed != uninterrupted")
+    check(np.isfinite(a[0]).all() and a[0].max() > 0, "demo3 progressive: bad accumulator")
+    launches.update(n)
+    return {"adaptive": adaptive, "nee": nee, "mis": mis_res, "physical": phys, "progressive": prog,
+            "launches": launches}
+
+
+# Phase 9: each new instantiation at one launch of its path, and the lines
+# of the TPU kernel (configurations of pallas_kernel.py::_kernel) it replaces.
+MEASURE = [
+    ("sweep+stats", "flux_tpu/ops/pallas_kernel.py:908",
+     dict(name="demo2", row0=256, n_rows=128, n_samples=64, root=32, stats=True)),
+    ("sweep+nee", "flux_tpu/ops/pallas_kernel.py:764",
+     dict(name="demo2", row0=300, n_rows=50, n_samples=1024, root=32, nee=True)),
+    ("sweep+physical", "flux_tpu/ops/pallas_kernel.py:279",
+     dict(name="demo3", row0=300, n_rows=50, n_samples=256, root=16, physical=True)),
+    ("sweep+nee+physical", "flux_tpu/ops/pallas_kernel.py:868",
+     dict(name="demo3", row0=0, n_rows=600, n_samples=16, root=4, nee=True, physical=True)),
+    ("sweep+nee+physical+stats", "flux_tpu/ops/pallas_kernel.py:868",
+     dict(name="demo3", row0=256, n_rows=128, n_samples=64, root=32, nee=True, physical=True, stats=True)),
+]
+
+
+def kernel_entry(name: str, replaces: str, launches: int, meas: dict) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "flux_tpu_torch/csrc/sweep_megakernel.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": meas["vs_plain"]["max_abs_diff"],
+        "ms": float(np.median(meas["kernel_ms"])),
+        "plain_ms": meas["plain_ms"],
+        "bound_ms": meas["bound_ms"],
+        "bound_by": meas["bound_by"],
+        "library_ms": None,
+        "shape": meas["shape"],
+        "bounces_per_sample": meas["bounces_per_sample"],
+        "work_counts": meas["work_counts"],
+    }
 
 
 def main() -> int:
@@ -282,27 +513,25 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         main_res = phase_main_path(tmp, card)
     meas = phase_measure(dev)
-    kernel = {
-        "name": "sweep_megakernel",
-        "route": "cuda",
-        "source": "flux_tpu_torch/csrc/sweep_megakernel.cu",
-        "replaces": "flux_tpu/ops/pallas_kernel.py:135",
-        "launches": main_res["launches"],
-        "max_abs_err": meas["vs_plain"]["max_abs_diff"],
+    kernel = kernel_entry("sweep_megakernel", "flux_tpu/ops/pallas_kernel.py:135", main_res["launches"], meas)
+    kernel.update({
         "max_abs_err_check_band": cmp["max_abs_diff"],
-        "ms": float(np.median(meas["kernel_ms"])),
-        "plain_ms": meas["plain_ms"],
-        "bound_ms": meas["bound_ms"],
-        "bound_by": meas["bound_by"],
-        "library_ms": None,
-        "shape": "demo2 band 50x800 px, 16384 spp, depth 5",
         "ms_per_frame": meas["frame_kernel_ms"],
         "cli_seconds_per_frame": main_res["cli_seconds"],
         "cli_band_loop_seconds": main_res["band_loop_seconds"],
-        "bounces_per_sample": meas["bounces_per_sample"],
-    }
+    })
+    kernels = [kernel]
+    # 7-9
+    for name, nee, physical, stats in CONFIGS:
+        phase_kernel_vs_plain(dev, name, nee=nee, physical=physical, stats=stats)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = phase_paths(dev, tmp)
+    for cfg, replaces, shape in MEASURE:
+        check(paths["launches"].get(cfg, 0) > 0, f"no path launched the {cfg} instantiation")
+        m = measure_launch(dev, **shape)
+        kernels.append(kernel_entry(f"sweep_megakernel[{cfg}]", replaces, paths["launches"][cfg], m))
     log(card)
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,10 @@ TPU), which stays the reference it is tested against. Module names mirror
 ``flux_tpu``'s so that each module's counterpart is found by name; inside,
 the code is plain PyTorch on tensors with an explicit ``device``. The one
 hot-path kernel, the sweep megakernel, is CUDA C++ written for Hopper
-(``csrc/sweep_megakernel.cu``, bound in ``ops/sweep_kernel.py``).
+(``csrc/sweep_megakernel.cu``, bound in ``ops/sweep_kernel.py``), with one
+template instantiation for each estimator configuration (reference
+transport, the stats channel, NEE, physical transport and MIS).
+Progressive, adaptive and checkpointed renders are in ``checkpoint.py``.
 
 Entry points (``Renderer``, ``cli``) run on the CUDA card unless the caller
 asks for the CPU (``device="cpu"``), where the plain PyTorch version of the

@@ -9,6 +9,10 @@ per material (see the JAX module's docstring):
 * glossy: frame about the mirror direction r, u = normalize((0.00424,1,
   0.00764) × r), v = u × r, cos^e warp, below-horizon flip (brdf.rs:56-71);
 * perfect mirror: wi = reflect(d, n) (brdf.rs:40-43).
+
+Under ``physical`` transport matte lanes warp with e = 1 (cosine-weighted,
+true Lambertian) instead of the reference's e = 0; the cancellation to
+color × amount then holds exactly, so only the direction moves.
 """
 
 from __future__ import annotations
@@ -28,9 +32,9 @@ _EM = tuple(float(v) for v in np.array([0.0034, 1.0, 0.0071], np.float32))
 _EG = tuple(float(v) for v in np.array([0.00424, 1.0, 0.00764], np.float32))
 
 
-def sample_directions(kind, exponent, normal: Vec3, d: Vec3, sx, sy) -> Vec3:
-    """Sample the bounce direction for every lane of a wavefront
-    (reference transport: matte lanes warp with e = 0).
+def sample_directions(kind, exponent, normal: Vec3, d: Vec3, sx, sy, physical: bool = False) -> Vec3:
+    """Sample the bounce direction for every lane of a wavefront (matte
+    lanes warp with e = 0, or e = 1 under ``physical`` transport).
 
     ``kind`` holds int32 material kinds, ``exponent`` float32 Phong
     exponents, ``normal`` the hit normals, ``d`` the unit incoming
@@ -40,7 +44,7 @@ def sample_directions(kind, exponent, normal: Vec3, d: Vec3, sx, sy) -> Vec3:
     is_glossy = kind == MaterialKind.GLOSSY
     is_perfect = kind == MaterialKind.REFLECTIVE
 
-    e = torch.where(is_glossy, exponent, 0.0)
+    e = torch.where(is_glossy, exponent, 1.0 if physical else 0.0)
     hx, hy, hz = to_unit_hemi(sx, sy, e)
 
     # wi = x·f1 + y·f2 + z·w, with the frame picked per lane.

@@ -11,6 +11,11 @@ package packs it, so glossy exponents round the same way there and here.
 
 No finite-math assumption is allowed: a plane with ``d·n == 0`` gives ±inf
 or NaN for ``t``, and only IEEE comparisons reject it.
+
+:func:`occluded_sweep` is the any-hit form for NEE shadow rays: one OR per
+shape instead of the nearest-hit winner fold, exposed beside
+:func:`intersect` as ``intersect.occluded``, the way ``flux_tpu``'s
+``Intersector`` exposes ``occluded``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from ..scene import SceneTensors
 from ..vec import Vec3
 from ..vec import where as vwhere
 
-__all__ = ["Hit", "sphere_t", "quad_a", "intersect"]
+__all__ = ["Hit", "sphere_t", "quad_a", "intersect", "fold_occluded_block", "occluded_sweep"]
 
 _T_MIN = float(np.float32(T_MIN))
 
@@ -164,3 +169,53 @@ def intersect(scene: SceneTensors, o: Vec3, d: Vec3, prev=None) -> Hit:
         albedo=best_alb,
         exponent=best_exp,
     )
+
+
+def _plane_occluded(scene: SceneTensors, o: Vec3, d: Vec3, t_max, exclude_idx, occ, origin_idx=None):
+    """Fold the planes into an any-hit occlusion mask. ``origin_idx``
+    excludes the shadow ray's own origin plane."""
+    ns = scene.num_spheres
+    for j in range(scene.num_planes):
+        px, py, pz = (scene.plane_point[j, k] for k in range(3))
+        nx, ny, nz = (scene.plane_normal[j, k] for k in range(3))
+        num = (px - o.x) * nx + (py - o.y) * ny + (pz - o.z) * nz
+        den = d.x * nx + d.y * ny + d.z * nz
+        t = num / den
+        blocks = (t > _T_MIN) & (t < t_max) & (exclude_idx != ns + j)
+        if origin_idx is not None:
+            blocks &= origin_idx != ns + j
+        occ = occ | blocks
+    return occ
+
+
+def fold_occluded_block(o, d, a, inv_a, occ, ctr, rad, t_max, exclude_idx, idx, origin_idx=None):
+    """Fold spheres ``ctr`` (K, 3) / ``rad`` (K,) whose shape indices are
+    ``idx`` into an any-hit occlusion mask: one OR per sphere, no winner.
+    The sphere the shadow ray originates on (``origin_idx``) takes its exact
+    ``c = 0``, so a genuine self-occlusion through its interior still
+    counts."""
+    for k, i in enumerate(idx):
+        t, valid = sphere_t(
+            o, d, a, inv_a, ctr[k, 0], ctr[k, 1], ctr[k, 2], rad[k],
+            on_self=None if origin_idx is None else origin_idx == i,
+        )
+        occ = occ | (valid & (t < t_max) & (exclude_idx != i))
+    return occ
+
+
+def occluded_sweep(scene: SceneTensors, o: Vec3, d: Vec3, t_max, exclude_idx, origin_idx=None):
+    """Any-hit shadow test: does any shape other than ``exclude_idx`` cross
+    (o, d) at T_MIN < t < t_max? ``origin_idx`` is the shape the shadow ray
+    starts on (its sphere quadratic takes ``c = 0``, its plane is skipped)."""
+    a, inv_a = quad_a(scene, d)
+    occ = torch.zeros(o.x.shape, dtype=torch.bool, device=o.x.device)
+    occ = fold_occluded_block(
+        o, d, a, inv_a, occ, scene.sphere_center, scene.sphere_radius, t_max, exclude_idx,
+        range(scene.num_spheres), origin_idx=origin_idx,
+    )
+    return _plane_occluded(scene, o, d, t_max, exclude_idx, occ, origin_idx=origin_idx)
+
+
+# The any-hit primitive beside the nearest-hit one, as flux_tpu's
+# Intersector exposes it (``isect.occluded``); the port has the sweep only.
+intersect.occluded = occluded_sweep

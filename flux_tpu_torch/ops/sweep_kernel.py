@@ -2,20 +2,25 @@
 
 :func:`render_block_sweep` has the contract of
 :func:`flux_tpu_torch.render.render_block` (radiance sums over the samples
-``[s0, s0 + n_samples)`` of a band of rows, ``(n_rows, img_w, 3)`` float32).
-For a scene whose tensors lie on the CPU it returns the plain version's
-result. For a scene on a CUDA card it launches ``csrc/sweep_megakernel.cu``
-(built for ``sm_90a`` at first use; see :mod:`flux_tpu_torch.ops.build`) or
-raises; it never falls back to the plain version there.
+``[s0, s0 + n_samples)`` of a band of rows, ``(n_rows, img_w, 3)`` float32,
+a fourth channel Σ luminance² with ``with_stats``; ``lights`` for NEE,
+``physical`` for physical transport). For a scene whose tensors lie on the
+CPU it returns the plain version's result. For a scene on a CUDA card it
+launches ``csrc/sweep_megakernel.cu`` (built for ``sm_90a`` at first use;
+see :mod:`flux_tpu_torch.ops.build`) or raises; it never falls back to the
+plain version there.
 
 The kernel replaces the TPU kernel ``flux_tpu/ops/pallas_kernel.py::_kernel``
-in its K1 configuration (sweep, no lights, reference transport, no
-triangles). The source's header says what bounds it on the H100 and how
-its design meets that.
+in its sweep configurations (no triangles): K1 (reference transport), K2
+(the stats channel), K3 (NEE over sphere lights) and K4 (physical
+transport, MIS with NEE), one template instantiation per combination. The
+source's header says what bounds it on the H100 and how its design meets
+that.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -27,11 +32,17 @@ from ..camera import CameraTensors
 from ..samplers.hash import MASK
 from ..scene import MaterialKind, SceneTensors
 from . import build
+from .nee import LightTensors
 
 __all__ = [
     "render_block_sweep",
     "pack_scene",
     "FluxScene",
+    "FluxLights",
+    "pack_lights",
+    "config_name",
+    "n_counts",
+    "reset_launch_counts",
     "MAX_SPHERES",
     "MAX_PLANES",
     "flops_lower_bound",
@@ -40,6 +51,8 @@ __all__ = [
 MAX_SPHERES = 64
 MAX_PLANES = 16
 MAX_SHAPES = MAX_SPHERES + MAX_PLANES
+MAX_LIGHTS = MAX_SPHERES  # every sphere light is a sweep sphere
+N_COUNTS = 5  # work counters per pixel with NEE or physical (else 1)
 _SOURCE = "sweep_megakernel"
 
 _F4 = ctypes.c_float * 4
@@ -70,6 +83,51 @@ class FluxScene(ctypes.Structure):
         ("vp_factor", ctypes.c_float),
         ("adjusted_pixel_size", ctypes.c_float),
     ]
+
+
+class FluxLights(ctypes.Structure):
+    """The kernel's ``__constant__`` light record (``struct FluxLights``)."""
+
+    _fields_ = [
+        ("n_lights", ctypes.c_int),
+        ("pad", ctypes.c_int * 3),
+        ("center", _F4 * MAX_LIGHTS),  # x, y, z, radius
+        ("emit", _F4 * MAX_LIGHTS),
+        ("pick", ctypes.c_float * MAX_LIGHTS),
+        ("cdf", ctypes.c_float * MAX_LIGHTS),
+        ("shape_idx", ctypes.c_int * MAX_LIGHTS),
+        ("light_of", ctypes.c_int * MAX_SHAPES),  # light index of a shape, -1 if none
+    ]
+
+
+def pack_lights(lights: LightTensors) -> FluxLights:
+    """The kernel's light record from the float32/int32 host copies of the
+    light set, with the inverse map shape → light index."""
+    n = lights.num_lights
+    if n > MAX_LIGHTS:
+        raise ValueError(f"the sweep megakernel takes at most {MAX_LIGHTS} lights, got {n}")
+    h = lights.host
+    st = FluxLights()
+    st.n_lights = n
+    arr = np.ctypeslib.as_array
+    arr(st.center)[:n, :3] = h["center"]
+    arr(st.center)[:n, 3] = h["radius"]
+    arr(st.emit)[:n, :3] = h["emit"]
+    arr(st.pick)[:n] = h["pick"]
+    arr(st.cdf)[:n] = h["cdf"]
+    arr(st.shape_idx)[:n] = h["shape_idx"]
+    arr(st.light_of)[:] = -1
+    for k, i in enumerate(h["shape_idx"].tolist()):
+        if not 0 <= i < MAX_SHAPES:
+            raise ValueError(f"light {k} has shape index {i}, outside the sweep's {MAX_SHAPES} shapes")
+        arr(st.light_of)[i] = k
+    return st
+
+
+def config_name(with_stats: bool, nee: bool, physical: bool) -> str:
+    """The name of a kernel instantiation: ``sweep`` (K1), plus ``+nee``,
+    ``+physical`` and ``+stats`` for the configurations it adds."""
+    return "sweep" + "+nee" * nee + "+physical" * physical + "+stats" * with_stats
 
 
 def pack_scene(scene: SceneTensors, cam: CameraTensors) -> FluxScene:
@@ -110,6 +168,10 @@ def _library() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     lib.flux_sweep_scene_bytes.restype = ctypes.c_size_t
     lib.flux_sweep_scene_bytes.argtypes = []
+    lib.flux_sweep_lights_bytes.restype = ctypes.c_size_t
+    lib.flux_sweep_lights_bytes.argtypes = []
+    lib.flux_sweep_n_counts.restype = ctypes.c_int
+    lib.flux_sweep_n_counts.argtypes = []
     lib.flux_sweep_max_spheres.restype = ctypes.c_int
     lib.flux_sweep_max_spheres.argtypes = []
     lib.flux_sweep_max_planes.restype = ctypes.c_int
@@ -119,8 +181,11 @@ def _library() -> ctypes.CDLL:
     lib.flux_sweep_render.restype = ctypes.c_int
     lib.flux_sweep_render.argtypes = [
         ctypes.c_void_p,  # out
-        ctypes.c_void_p,  # bounce_counts (may be null)
+        ctypes.c_void_p,  # counts (may be null)
         ctypes.POINTER(FluxScene),
+        ctypes.POINTER(FluxLights),  # null without NEE
+        ctypes.c_int,  # with_stats
+        ctypes.c_int,  # physical
         ctypes.c_int,  # n_pix
         ctypes.c_int,  # img_w
         ctypes.c_int,  # img_h
@@ -136,11 +201,20 @@ def _library() -> ctypes.CDLL:
     ]
     if (
         lib.flux_sweep_scene_bytes() != ctypes.sizeof(FluxScene)
+        or lib.flux_sweep_lights_bytes() != ctypes.sizeof(FluxLights)
+        or lib.flux_sweep_n_counts() != N_COUNTS
         or lib.flux_sweep_max_spheres() != MAX_SPHERES
         or lib.flux_sweep_max_planes() != MAX_PLANES
     ):
-        raise RuntimeError("FluxScene layout differs between Python and CUDA")
+        raise RuntimeError("FluxScene/FluxLights layout differs between Python and CUDA")
     return lib
+
+
+def n_counts(nee: bool, physical: bool) -> int:
+    """Work counters per pixel of an instantiation: bounces only for K1 and
+    K2; with NEE or physical also light samples, unoccluded shadow rays,
+    MIS reverse densities and glossy lobe evaluations."""
+    return N_COUNTS if (nee or physical) else 1
 
 
 def render_block_sweep(
@@ -159,13 +233,17 @@ def render_block_sweep(
     s_limit: Optional[int] = None,
     row_stride: int = 1,
     with_stats: bool = False,
+    lights: Optional[LightTensors] = None,
+    physical: bool = False,
     bounce_counts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Radiance sums over samples [s0, s0+n_samples) of rows
     ``row0 + k·row_stride``, ``(n_rows, img_w, 3)`` float32 on the scene's
-    device. On the card, ``bounce_counts`` (optional int32 tensor of
-    ``n_rows·img_w``) receives each pixel's number of bounces, summed over
-    its samples."""
+    device (``(n_rows, img_w, 4)`` with ``with_stats``). On the card,
+    ``bounce_counts`` (optional contiguous int32 tensor) receives each
+    pixel's work counters summed over its samples: shape ``(n_rows·img_w,)``
+    (bounces) for K1 and K2, ``(N_COUNTS, n_rows·img_w)`` with ``lights`` or
+    ``physical`` (row 0 bounces; see :func:`flops_lower_bound`)."""
     dev = scene.device
     if dev.type == "cpu":
         if bounce_counts is not None:
@@ -176,14 +254,11 @@ def render_block_sweep(
             scene, cam, row0, s0, seed,
             img_w=img_w, img_h=img_h, n_rows=n_rows, n_samples=n_samples, root=root,
             max_depth=max_depth, s_limit=s_limit, row_stride=row_stride, with_stats=with_stats,
+            lights=lights, physical=physical,
         )
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if with_stats:
-        raise NotImplementedError(
-            "the stats channel is not in the kernel yet (ROADMAP.md, queue B: K2)"
-        )
-    if cam.eye.device != dev:
+    if cam.eye.device != dev or (lights is not None and lights.center.device != dev):
         raise ValueError(f"camera on {cam.eye.device}, scene on {dev}")
     if torch.cuda.get_device_capability(dev) != (9, 0):
         raise RuntimeError(
@@ -193,25 +268,30 @@ def render_block_sweep(
     n_pix = n_rows * img_w
     if not (0 < n_pix < 2**31 and 0 <= n_samples < 2**32 and root >= 1 and max_depth >= 0):
         raise ValueError(f"bad launch shape n_pix={n_pix} n_samples={n_samples} root={root}")
-    out = torch.empty((3, n_pix), dtype=torch.float32, device=dev)
+    n_ch = 4 if with_stats else 3
+    out = torch.empty((n_ch, n_pix), dtype=torch.float32, device=dev)
     counts_ptr = None
     if bounce_counts is not None:
+        nc = n_counts(lights is not None, physical)
+        want = (n_pix,) if nc == 1 else (nc, n_pix)
         if (
             bounce_counts.device != dev
             or bounce_counts.dtype != torch.int32
-            or bounce_counts.shape != (n_pix,)
+            or tuple(bounce_counts.shape) != want
             or not bounce_counts.is_contiguous()
         ):
-            raise ValueError(f"bounce_counts must be a contiguous int32 ({n_pix},) tensor on {dev}")
+            raise ValueError(f"bounce_counts must be a contiguous int32 {want} tensor on {dev}")
         counts_ptr = bounce_counts.data_ptr()
     lib = _library()
     packed = pack_scene(scene, cam)
+    packed_lights = None if lights is None else ctypes.byref(pack_lights(lights))
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
     with torch.cuda.device(dev):
         err = lib.flux_sweep_render(
-            out.data_ptr(), counts_ptr, ctypes.byref(packed), n_pix, img_w, img_h, int(row0),
-            int(row_stride), int(s0) & MASK, int(n_samples), limit, int(seed) & MASK, int(root),
-            int(max_depth), torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), counts_ptr, ctypes.byref(packed), packed_lights, int(with_stats),
+            int(physical), n_pix, img_w, img_h, int(row0), int(row_stride), int(s0) & MASK,
+            int(n_samples), limit, int(seed) & MASK, int(root), int(max_depth),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -219,34 +299,79 @@ def render_block_sweep(
             f"({lib.flux_sweep_error_string(err).decode()})"
         )
     render_block_sweep.launches += 1
-    return out.t().reshape(n_rows, img_w, 3)
+    render_block_sweep.launches_by_config[config_name(with_stats, lights is not None, physical)] += 1
+    return out.t().reshape(n_rows, img_w, n_ch)
+
+
+def reset_launch_counts() -> None:
+    """Set every launch count of the kernel to 0."""
+    render_block_sweep.launches = 0
+    render_block_sweep.launches_by_config.clear()
 
 
 render_block_sweep.launches = 0  # kernel launches since the count was last reset
+# The same launches by instantiation (config_name), e.g. "sweep+nee+physical".
+render_block_sweep.launches_by_config = collections.Counter()
 
 
 # float32 operations per unit of work, counted from csrc/sweep_megakernel.cu
-# (add, sub, mul, div, sqrt, rsqrt, cos and pow count one each; integer
-# hashing, compares and selects are not counted). Unit-direction scenes.
+# (add, sub, mul, div, sqrt, rsqrt, cos, sin and pow count one each; integer
+# hashing, compares and selects are not counted; a subexpression used twice
+# counts once). Unit-direction scenes.
 _OPS_PER_SAMPLE = 88  # CMJ AA + lens points, disc warp, thin-lens ray, sum
+_OPS_PER_SAMPLE_STATS = 7  # luminance, its square, the sum
 _OPS_PER_SPHERE_TEST = 20
 _OPS_PER_PLANE_TEST = 14
 _OPS_PER_BOUNCE = 6  # hit point, or the background add on a miss
 _OPS_PER_SCATTER_WARPED = 81  # reflect, bounce point, hemisphere warp, frame, throughput
 _OPS_PER_SCATTER_MIRROR = 15  # reflect and throughput only
+_OPS_PER_SCATTER_PHYSICAL = 8  # cos θ_i and the throughput factor's multiplies
+# NEE: the jittered cone point and the pick number (7), the cone sample
+# with its frame, ring decomposition, clipped arc and weight (123), cos θ_s
+# (5) and the light's own sphere test (20).
+_OPS_PER_LIGHT_SAMPLE = 155
+_OPS_PER_SHADOW_CONTRIB = 12  # (throughput × albedo × weight) × factor, added
+_OPS_PER_SHADOW_CONTRIB_MIS = 5  # pdf_b, the balance weight, f·cos
+_OPS_PER_REVERSE_DENSITY = 95  # nee_pdf_toward with the clipped arc, the weight
+_OPS_PER_GLOSSY_LOBE = 23  # r·w, pow, flipped twin, its horizon test, density
 
 
-def flops_lower_bound(scene: SceneTensors, n_samples: int, n_bounces: int) -> int:
+def flops_lower_bound(
+    scene: SceneTensors,
+    n_samples: int,
+    n_bounces: int,
+    *,
+    with_stats: bool = False,
+    physical: bool = False,
+    light_samples: int = 0,
+    shadow_rays: int = 0,
+    reverse_densities: int = 0,
+    glossy_lobes: int = 0,
+) -> int:
     """A lower bound on the kernel's float32 operations for a launch that
-    traced ``n_samples`` samples in ``n_bounces`` bounces (the kernel's
-    ``bounce_counts``, summed). At least ``n_bounces - n_samples`` bounces
-    scattered, since each sample's last bounce ends it or hits the depth
-    cap; each is charged the cheapest scatter the scene's materials allow."""
+    traced ``n_samples`` samples in ``n_bounces`` bounces; the other counts
+    are the kernel's work counters, summed (``bounce_counts`` rows 1-4).
+    At least ``n_bounces - n_samples`` bounces scattered, since each
+    sample's last bounce ends it or hits the depth cap; each is charged the
+    cheapest scatter the scene's materials allow. An unoccluded shadow ray
+    swept every sphere but its light and every plane but its origin's; an
+    occluded one is charged nothing beyond its light sample."""
     per_test = scene.num_spheres * _OPS_PER_SPHERE_TEST + scene.num_planes * _OPS_PER_PLANE_TEST
     mirror = bool((scene.host["mat_kind"] == MaterialKind.REFLECTIVE).any())
     scatter = _OPS_PER_SCATTER_MIRROR if mirror else _OPS_PER_SCATTER_WARPED
+    if physical:
+        scatter += _OPS_PER_SCATTER_PHYSICAL
+    shadow_sweep = (
+        max(scene.num_spheres - 1, 0) * _OPS_PER_SPHERE_TEST
+        + max(scene.num_planes - 1, 0) * _OPS_PER_PLANE_TEST
+    )
+    contrib = _OPS_PER_SHADOW_CONTRIB + (_OPS_PER_SHADOW_CONTRIB_MIS if physical else 0)
     return (
-        n_samples * _OPS_PER_SAMPLE
+        n_samples * (_OPS_PER_SAMPLE + (_OPS_PER_SAMPLE_STATS if with_stats else 0))
         + n_bounces * (per_test + _OPS_PER_BOUNCE)
         + max(n_bounces - n_samples, 0) * scatter
+        + light_samples * _OPS_PER_LIGHT_SAMPLE
+        + shadow_rays * (shadow_sweep + contrib)
+        + reverse_densities * _OPS_PER_REVERSE_DENSITY
+        + glossy_lobes * _OPS_PER_GLOSSY_LOBE
     )

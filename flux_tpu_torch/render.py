@@ -6,7 +6,9 @@ an eager wavefront over lanes ``(samples, rows, cols)`` that regenerates
 every lane's stratified samples from counters, builds thin-lens primary
 rays, runs ``max_depth`` bounces with alive-masking and sums radiance over
 the sample axis. It is what the kernel is held against, and what runs when
-the scene's tensors lie on the CPU.
+the scene's tensors lie on the CPU. With ``lights`` each bounce also draws
+the NEE sample streams (``SALT_NEE`` for the cone point, ``SALT_NEEPICK``
+for the light pick) and gates the light sample off at the final depth.
 
 The ``Renderer`` renders a band of rows through
 :func:`flux_tpu_torch.ops.sweep_kernel.render_block_sweep`: the CUDA kernel
@@ -24,9 +26,10 @@ import torch
 
 from .camera import CameraTensors, camera_tensors, primary_rays
 from .color import luminance, max_to_one
-from .constants import SALT_AA, SALT_BOUNCE, SALT_LENS
+from .constants import SALT_AA, SALT_BOUNCE, SALT_LENS, SALT_NEE, SALT_NEEPICK
+from .ops.nee import LightTensors, extract_lights
 from .ops.shade import PathState, bounce
-from .samplers.hash import MASK, hash_combine
+from .samplers.hash import MASK, hash_combine, randfloat
 from .samplers.patterns import bounce_point, cmj_point
 from .samplers.warps import to_poisson_disc
 from .scene import SceneData, SceneTensors, SphereData, TriangleData, compile_scene
@@ -55,12 +58,15 @@ def render_block(
     s_limit: Optional[int] = None,
     row_stride: int = 1,
     with_stats: bool = False,
+    lights: Optional[LightTensors] = None,
+    physical: bool = False,
 ) -> torch.Tensor:
     """Radiance sum over sample indices [s0, s0+n_samples) for a band of
     rows ``row0 + k·row_stride``. Returns ``(n_rows, img_w, 3)`` float32
     (a fourth channel, the per-pixel Σ luminance², with ``with_stats``).
-    Lanes whose sample index is ``>= s_limit`` add nothing. The contract of
-    ``flux_tpu.render.render_block_impl``."""
+    Lanes whose sample index is ``>= s_limit`` add nothing. ``lights``
+    turns on next-event estimation and ``physical`` the physical transport
+    (with both: MIS). The contract of ``flux_tpu.render.render_block_impl``."""
     dev = scene.device
     s_idx = ((int(s0) + torch.arange(n_samples, dtype=torch.int64, device=dev)) & MASK)[:, None, None]
     row = (int(row0) + torch.arange(n_rows, dtype=torch.int32, device=dev) * int(row_stride))[None, :, None]
@@ -91,12 +97,26 @@ def render_block(
         radiance=Vec3(zeros, zeros, zeros),
         alive=alive,
         prev_shape=torch.full(shape, -1, dtype=torch.int32, device=dev),
+        suppress=None if lights is None else torch.zeros(shape, dtype=torch.bool, device=dev),
+        prev_pdf=None if lights is None else zeros,
+        # Camera lanes have prev_pdf 0, so this start value is never read.
+        prev_normal=Vec3(zeros, zeros, zeros) if lights is not None and physical else None,
     )
     for depth in range(1, max_depth + 1):
         # A fresh stratified sample per (pixel, sample, depth).
         pat = hash_combine(pixel_base, SALT_BOUNCE, depth)
         bx, by = bounce_point(s_idx, root, pat, depth)
-        state = bounce(scene, state, bx.expand(shape), by.expand(shape), first_bounce=depth == 1)
+        nee_samples = None
+        if lights is not None:
+            ux, uy = bounce_point(s_idx, root, hash_combine(pixel_base, SALT_NEE, depth), depth)
+            upick = randfloat(s_idx, hash_combine(pixel_base, SALT_NEEPICK, depth))
+            # Final-depth gate: the BSDF walk would collect this light at
+            # the next vertex, which a depth-capped walk never reaches.
+            nee_samples = (ux.expand(shape), uy.expand(shape), upick.expand(shape), depth < max_depth)
+        state = bounce(
+            scene, state, bx.expand(shape), by.expand(shape), first_bounce=depth == 1,
+            lights=lights, nee_samples=nee_samples, physical=physical,
+        )
     rad = state.radiance
     channels = [rad.x.sum(dim=0), rad.y.sum(dim=0), rad.z.sum(dim=0)]
     if with_stats:
@@ -148,7 +168,9 @@ class Renderer:
 
     On the card each band is one launch of the sweep megakernel with every
     requested sample. On the CPU the plain version runs, in sample chunks of
-    about ``target_lanes`` lanes.
+    about ``target_lanes`` lanes. ``nee`` and ``physical`` select the
+    estimator as in ``flux_tpu``; ``.nee``, ``.physical`` and ``.lights``
+    say what was built (``nee`` is False for a scene with no sphere light).
     """
 
     def __init__(
@@ -163,10 +185,13 @@ class Renderer:
         nee: bool = False,
         physical: bool = False,
     ):
-        if nee:
-            raise _not_ported("next-event estimation", "queue B: K3")
-        if physical:
-            raise _not_ported("physical transport and MIS", "queue B: K4")
+        self.device = resolve_device(device)
+        # Next-event estimation over the scene's sphere lights (None, and
+        # nee False, when it has none; emissive triangles raise), and
+        # physical transport.
+        self.lights = extract_lights(scene_data, self.device) if nee else None
+        self.nee = self.lights is not None
+        self.physical = bool(physical)
         if any(isinstance(s, TriangleData) for s in scene_data.shapes):
             raise _not_ported("triangle geometry", "queue B: K6")
         if accel is None:
@@ -177,7 +202,6 @@ class Renderer:
         if accel != "sweep":
             raise ValueError(f"unknown accel {accel!r}")
         self.accel = accel
-        self.device = resolve_device(device)
         self.scene_data = scene_data
         self.scene = compile_scene(scene_data, self.device)
         self.cam = camera_tensors(
@@ -211,8 +235,6 @@ class Renderer:
         channel, Σ luminance², with ``with_stats``)."""
         from .ops.sweep_kernel import render_block_sweep
 
-        if with_stats and self.device.type == "cuda":
-            raise _not_ported("the stats channel in the kernel", "queue B: K2")
         acc = None
         for off, n in plan_chunks(n_samples, self._chunk_size(n_rows, n_samples)):
             part = render_block_sweep(
@@ -228,6 +250,8 @@ class Renderer:
                 root=self.root,
                 max_depth=self.max_depth,
                 with_stats=with_stats,
+                lights=self.lights,
+                physical=self.physical,
             )
             acc = part if acc is None else acc + part
         return acc

@@ -1,6 +1,7 @@
 """Package-level checks of the port: its import boundary, its device rules,
 the kernel wrapper's CPU route, the scene loader and the CLI's output."""
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -18,7 +19,7 @@ from flux_tpu_torch import cli
 from flux_tpu_torch.camera import camera_tensors
 from flux_tpu_torch.ops.sweep_kernel import render_block_sweep
 from flux_tpu_torch.render import Renderer, render_block
-from flux_tpu_torch.scene import compile_scene, load_scene
+from flux_tpu_torch.scene import MaterialData, MaterialKind, TriangleData, compile_scene, load_scene
 
 REPO = Path(__file__).resolve().parent.parent
 SCENES = sorted((REPO / "scenes").glob("*.yml"))
@@ -80,12 +81,26 @@ def test_entry_points_need_the_card_by_default(tmp_path):
     assert not (tmp_path / "demo2.ppm").exists()
 
 
+def _with_triangle(sd, kind):
+    """``sd`` plus one triangle of material ``kind``."""
+    tri = TriangleData(v0=(0.0, 0.1, 0.0), v1=(1.0, 0.1, 0.0), v2=(0.0, 0.1, 1.0),
+                       material=MaterialData(kind=kind, color=(1.0, 1.0, 1.0), param=5.0))
+    return dataclasses.replace(sd, shapes=sd.shapes + (tri,))
+
+
 @pytest.mark.parametrize(
-    "kwargs, item",
-    [({"nee": True}, "K3"), ({"physical": True}, "K4"), ({"accel": "scan"}, "K5")],
+    "change, kwargs, item",
+    [
+        (None, {"accel": "scan"}, "K5"),
+        (MaterialKind.MATTE, {}, "K6"),
+        (MaterialKind.EMISSIVE, {"nee": True}, "K7"),
+    ],
+    ids=["scan", "triangles", "triangle_lights"],
 )
-def test_unported_options_raise(tmp_path, kwargs, item):
+def test_unported_options_raise(tmp_path, change, kwargs, item):
     sd = load_scene(str(_tiny_scene(tmp_path)))
+    if change is not None:
+        sd = _with_triangle(sd, change)
     with pytest.raises(NotImplementedError, match=item):
         Renderer(sd, 1, 2, device="cpu", **kwargs)
 
