@@ -29,8 +29,10 @@ Phases, in order; any failure exits non-zero before the result line:
    results on that launch are held against each other at phase 3's gate,
    and their max |diff| is the ``max_abs_err`` of the kernels line;
 7. kernel vs plain for each new instantiation (stats, nee, physical,
-   nee+physical, nee+physical+stats) on an 8-row band of demo3 (demo2 for
-   stats and nee alone), at phase 3's gate, all 4 channels with stats;
+   nee+physical, nee+stats, physical+stats, nee+physical+stats) on an
+   8-row band of demo3 (demo2 for nee and nee+stats), at phase 3's gate;
+   with stats, the Σ luminance² channel too (99% of values at rtol 1e-4,
+   mean |diff| under 1e-4 of its mean), and the split on all 4 channels;
 8. the quality paths, each through its entry point with the launch counts
    set to 0 just before and read just after:
    a. demo2 adaptive: ``cli scenes/demo2.yml -r 32 -d 5 --progressive 64
@@ -47,9 +49,14 @@ Phases, in order; any failure exits non-zero before the result line:
       ProgressiveRenderer, saved, then finished by ``cli scenes/demo3.yml
       -r 32 -d 5 --nee --physical --progressive 64 --checkpoint <file>
       --resume``; the accumulators must be bitwise equal to the CLI's
-      uninterrupted run;
+      uninterrupted run; then the host seconds of one such pass, step by
+      step (launches, copy back, numpy adds, p99, npz save);
+   f. demo2 progressive NEE: ``cli scenes/demo2.yml -r 8 -d 5 --nee
+      --progressive 32 --checkpoint <file>``; the checkpoint's sums must
+      match one launch of all 64 samples within 1e-5 relative;
+   g. demo3 progressive physical: the same with ``--physical``;
 9. measurement of each new instantiation at its path's launch shape, as
-   in phase 6.
+   in phase 6, with phase 7's gate.
 
 It ends with a ``{"kernels": [...]}`` line (one entry per instantiation)
 and then the result line ``{"ok": true, "device": {...}}``.
@@ -82,7 +89,6 @@ from flux_tpu_torch.ops.sweep_kernel import (
     flops_lower_bound,
     n_counts,
     render_block_sweep,
-    reset_launch_counts,
 )
 from flux_tpu_torch.render import Renderer, finalize, plan_chunks, render_block
 from flux_tpu_torch.scene import compile_scene, load_scene
@@ -145,6 +151,30 @@ def scene_on(dev, name: str):
     return sd, compile_scene(sd, dev), cam
 
 
+def stats_vs_plain(k: torch.Tensor, p: torch.Tensor) -> dict:
+    """The Σ luminance² channel of a stats launch against the plain
+    version's: the fraction of values within float32 rounding (rtol 1e-4,
+    as tests/test_torch_cuda.py holds it) and the mean |diff| relative to
+    the channel's mean."""
+    k3, p3 = k[..., 3], p[..., 3]
+    return {
+        "stats_frac_close": float(torch.isclose(k3, p3, rtol=1e-4, atol=1e-5).float().mean()),
+        "stats_rel_mean_abs_diff": float((k3 - p3).abs().mean() / p3.abs().mean().clamp_min(1e-30)),
+    }
+
+
+def check_vs_plain(res: dict, what: str) -> None:
+    """Phase 3's gate on the finalized radiance; with stats also 99% of the
+    Σ luminance² values within float32 rounding and a relative mean |diff|
+    under 1e-4 (a wrong luminance weight or a lost sample moves it by
+    percents)."""
+    check(res["finalized_mean_abs_diff"] < 1e-3, f"kernel vs plain, {what}: mean |diff| >= 1e-3")
+    check(res["finalized_frac_over_5e-3"] < 0.01, f"kernel vs plain, {what}: >= 1% of values off by > 5e-3")
+    if "stats_frac_close" in res:
+        check(res["stats_frac_close"] >= 0.99, f"kernel vs plain, {what}: Σ lum² off on >= 1% of values")
+        check(res["stats_rel_mean_abs_diff"] < 1e-4, f"kernel vs plain, {what}: Σ lum² mean |diff| >= 1e-4 rel")
+
+
 def phase_kernel_vs_plain(dev, name="demo2", nee=False, physical=False, stats=False) -> dict:
     """An 8-row band at full width, root 4, depth 5, seed 42, through the
     kernel's instantiation (stats, nee, physical) and its plain version."""
@@ -173,9 +203,10 @@ def phase_kernel_vs_plain(dev, name="demo2", nee=False, physical=False, stats=Fa
         "kernel_ms": band_ms,
         "plain_ms": band_plain_ms,
     }
+    if stats:
+        res.update(stats_vs_plain(k1, plain))
     log(f"kernel vs plain ({what}, 8x800, root 4, depth 5, seed 42):", json.dumps(res))
-    check(res["finalized_mean_abs_diff"] < 1e-3, f"kernel vs plain, {what}: mean |diff| >= 1e-3")
-    check(res["finalized_frac_over_5e-3"] < 0.01, f"kernel vs plain, {what}: >= 1% of values off by > 5e-3")
+    check_vs_plain(res, what)
     # Sample ranges add up: [0, 8) + [8, 16) == [0, 16), to float32 rounding.
     parts = render_block_sweep(scene, cam, row0, 0, seed, n_samples=8, **kw) + render_block_sweep(
         scene, cam, row0, 8, seed, n_samples=8, **kw
@@ -216,15 +247,15 @@ def levels(img: np.ndarray) -> np.ndarray:
 
 def phase_main_path(out_dir: str, card: str) -> dict:
     argv = ["scenes/demo2.yml", "-r", "128", "-d", "5", "--seed", "0", "--output-dir", out_dir]
-    reset_launch_counts()
+    render_block_sweep.launches.clear()
     t0 = time.perf_counter()
     # cli.run is cli.main without the exit code: it also returns its timings.
     ran = cli_run([os.path.join(HERE, argv[0]), *argv[1:]])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = render_block_sweep.launches
+    launches = render_block_sweep.launches.total()
     check(launches > 0, "the main path launched no sweep megakernel")
-    check(dict(render_block_sweep.launches_by_config) == {"sweep": launches}, "the main path left K1")
+    check(dict(render_block_sweep.launches) == {"sweep": launches}, "the main path left K1")
     path = os.path.join(out_dir, "demo2.ppm")
     check(ran["out"] == path, f"the CLI wrote {ran['out']}, not {path}")
     with open(path, "rb") as f:
@@ -310,9 +341,10 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
         "finalized_mean_abs_diff": float(fd.mean()),
         "finalized_frac_over_5e-3": float((fd > 5e-3).float().mean()),
     }
+    if stats:
+        cmp.update(stats_vs_plain(k, p))
     log(f"kernel vs plain ({what}, depth 5, seed 0):", json.dumps(cmp))
-    check(cmp["finalized_mean_abs_diff"] < 1e-3, f"kernel vs plain, {what}: mean |diff| >= 1e-3")
-    check(cmp["finalized_frac_over_5e-3"] < 0.01, f"kernel vs plain, {what}: >= 1% of values off by > 5e-3")
+    check_vs_plain(cmp, what)
     res = {
         "vs_plain": cmp,
         "kernel_ms": kernel_ms,
@@ -350,6 +382,8 @@ CONFIGS = [
     ("demo3", True, False, False),
     ("demo3", False, True, False),
     ("demo3", True, True, False),
+    ("demo2", True, False, True),
+    ("demo3", False, True, True),
     ("demo3", True, True, True),
 ]
 
@@ -357,12 +391,12 @@ CONFIGS = [
 def run_path(label: str, fn):
     """Drive one path with every launch count set to 0 just before it;
     returns its result and the launches by instantiation just after."""
-    reset_launch_counts()
+    render_block_sweep.launches.clear()
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(render_block_sweep.launches_by_config)
+    launches = dict(render_block_sweep.launches)
     log(f"path {label}: {seconds:.3f} s, launches {json.dumps(launches)}")
     return res, launches, seconds
 
@@ -455,8 +489,71 @@ def phase_paths(dev, out_dir: str) -> dict:
     check(prog["acc_bitwise_equal"] and prog["lum_sq_bitwise_equal"], "demo3 progressive: resumed != uninterrupted")
     check(np.isfinite(a[0]).all() and a[0].max() > 0, "demo3 progressive: bad accumulator")
     launches.update(n)
+    prog["host_split"] = progressive_pass_split(dev, demo3, os.path.join(out_dir, "split.ckpt.npz"))
+
+    # f, g. Progressive NEE alone and physical alone (the stats kernel with
+    # each): the checkpoint's accumulator of 2 passes of 32 against one
+    # launch of all 64 samples of the frame.
+    single = {}
+    for label, scene, flags, cfg in (
+        ("demo2 progressive nee", demo2, ["--nee"], "sweep+nee+stats"),
+        ("demo3 progressive physical", demo3, ["--physical"], "sweep+physical+stats"),
+    ):
+        ck = os.path.join(out_dir, f"{cfg}.ckpt.npz")
+        ran, n, secs = run_path(label, lambda: cli_run(
+            [scene, "-r", "8", "-d", "5", *flags, "--progressive", "32", "--seed", "0", "--checkpoint", ck,
+             "--output-dir", os.path.join(out_dir, cfg)]))
+        acc, done = load_checkpoint(ck)[:2]
+        r = Renderer(load_scene(scene), 8, 5, seed=0, device=dev, nee="--nee" in flags,
+                     physical="--physical" in flags)
+        whole = r.render_rows_sum_range(0, r.height, 0, 64).cpu().numpy()
+        rel = float((np.abs(acc - whole) / np.maximum(np.abs(whole), 1e-30)).max())
+        single[cfg] = {"seconds": secs, "launches": n, "spp_done": done, "p99_rel_stderr": ran["p99_rel_stderr"],
+                       "max_rel_diff_vs_one_launch": rel}
+        log(f"{label} (cli -r 8 -d 5 {flags[0]} --progressive 32) vs one launch:", json.dumps(single[cfg]))
+        check(set(n) == {cfg}, f"{label}: not all launches were the {cfg} kernel")
+        check(done == 64 and ran["p99_rel_stderr"] is not None, f"{label}: did not finish its 64 spp")
+        check(rel <= 1e-5, f"{label}: passes disagree with one launch beyond 1e-5 relative")
+        launches.update(n)
     return {"adaptive": adaptive, "nee": nee, "mis": mis_res, "physical": phys, "progressive": prog,
-            "launches": launches}
+            "single": single, "launches": launches}
+
+
+def progressive_pass_split(dev, scene: str, ck: str) -> dict:
+    """Host seconds of one progressive pass (demo3 MIS, 64 spp, after a
+    first pass), step by step as run_progressive takes them: each band's
+    launch to its end, the copy back to numpy, the adds into the
+    accumulators (the body of ProgressiveRenderer.render_pass), then
+    max_rel_stderr and save; and the whole render_pass of the next pass."""
+    r = Renderer(load_scene(scene), 32, 5, seed=0, device=dev, nee=True, physical=True)
+    pr = ProgressiveRenderer.from_renderer(r)
+    pr.render_pass(64)
+    split = dict.fromkeys(("launch_to_end", "copy_back", "numpy_add"), 0.0)
+    for row0 in range(0, pr.height, 128):
+        n_rows = min(128, pr.height - row0)
+        t0 = time.perf_counter()
+        part = r.render_rows_sum_range(row0, n_rows, pr.samples_done, 64, with_stats=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        part = part.cpu().numpy()
+        t2 = time.perf_counter()
+        pr.acc[row0: row0 + n_rows] += part[..., :3]
+        pr.lum_sq[row0: row0 + n_rows] += part[..., 3]
+        t3 = time.perf_counter()
+        split["launch_to_end"] += t1 - t0
+        split["copy_back"] += t2 - t1
+        split["numpy_add"] += t3 - t2
+    pr.samples_done += 64
+    t0 = time.perf_counter()
+    pr.max_rel_stderr()
+    t1 = time.perf_counter()
+    pr.save(ck)
+    t2 = time.perf_counter()
+    pr.render_pass(64)
+    t3 = time.perf_counter()
+    split.update(max_rel_stderr=t1 - t0, save=t2 - t1, render_pass=t3 - t2)
+    log("progressive pass host split (demo3 MIS, 800x600, 64 spp, 5 bands), seconds:", json.dumps(split))
+    return split
 
 
 # Phase 9: each new instantiation at one launch of its path, and the lines
@@ -472,6 +569,10 @@ MEASURE = [
      dict(name="demo3", row0=0, n_rows=600, n_samples=16, root=4, nee=True, physical=True)),
     ("sweep+nee+physical+stats", "flux_tpu/ops/pallas_kernel.py:868",
      dict(name="demo3", row0=256, n_rows=128, n_samples=64, root=32, nee=True, physical=True, stats=True)),
+    ("sweep+nee+stats", "flux_tpu/ops/pallas_kernel.py:764",
+     dict(name="demo2", row0=256, n_rows=128, n_samples=32, root=8, nee=True, stats=True)),
+    ("sweep+physical+stats", "flux_tpu/ops/pallas_kernel.py:279",
+     dict(name="demo3", row0=256, n_rows=128, n_samples=32, root=8, physical=True, stats=True)),
 ]
 
 

@@ -42,7 +42,6 @@ __all__ = [
     "pack_lights",
     "config_name",
     "n_counts",
-    "reset_launch_counts",
     "MAX_SPHERES",
     "MAX_PLANES",
     "flops_lower_bound",
@@ -298,20 +297,13 @@ def render_block_sweep(
             f"sweep megakernel launch failed: CUDA error {err} "
             f"({lib.flux_sweep_error_string(err).decode()})"
         )
-    render_block_sweep.launches += 1
-    render_block_sweep.launches_by_config[config_name(with_stats, lights is not None, physical)] += 1
+    render_block_sweep.launches[config_name(with_stats, lights is not None, physical)] += 1
     return out.t().reshape(n_rows, img_w, n_ch)
 
 
-def reset_launch_counts() -> None:
-    """Set every launch count of the kernel to 0."""
-    render_block_sweep.launches = 0
-    render_block_sweep.launches_by_config.clear()
-
-
-render_block_sweep.launches = 0  # kernel launches since the count was last reset
-# The same launches by instantiation (config_name), e.g. "sweep+nee+physical".
-render_block_sweep.launches_by_config = collections.Counter()
+# Kernel launches by instantiation (config_name, e.g. "sweep+nee+physical")
+# since the count was last cleared; .total() counts them all.
+render_block_sweep.launches = collections.Counter()
 
 
 # float32 operations per unit of work, counted from csrc/sweep_megakernel.cu

@@ -1,6 +1,6 @@
 """The sweep megakernel on a CUDA card against its plain PyTorch version,
-in each instantiation a render path launches (K1; K2 stats; K3 NEE; K4
-physical, and MIS with NEE).
+in each of its 8 instantiations (K1; K2 stats; K3 NEE; K4 physical, and
+MIS with NEE; each of these with stats).
 
 Marked ``cuda``: each test skips without a card. This file imports neither
 JAX nor ``flux_tpu``, so it also runs on a machine with the card and no JAX:
@@ -56,11 +56,11 @@ def test_kernel_matches_plain(card, name):
     branch went the other way, which the finalized-pixel gate bounds."""
     sc, cam = _scene(card, name)
     kw = dict(img_w=800, img_h=600, n_rows=2, n_samples=9, root=3, max_depth=5)
-    before = render_block_sweep.launches
+    before = render_block_sweep.launches["sweep"]
     k = render_block_sweep(sc, cam, 299, 0, 11, **kw)
     k2 = render_block_sweep(sc, cam, 299, 0, 11, **kw)
     torch.cuda.synchronize()
-    assert render_block_sweep.launches == before + 2
+    assert render_block_sweep.launches["sweep"] == before + 2
     assert torch.equal(k.view(torch.int32), k2.view(torch.int32))  # bitwise deterministic
     p = render_block(sc, cam, 299, 0, 11, **kw)
     close = torch.isclose(k, p, rtol=1e-5, atol=1e-6)
@@ -69,14 +69,17 @@ def test_kernel_matches_plain(card, name):
     assert fd.mean() < 1e-3 and (fd > 5e-3).float().mean() < 0.01
 
 
-# (scene, nee, physical, stats): every instantiation that a render path
-# launches, on the scenes whose lights and materials exercise it.
+# (scene, nee, physical, stats): every instantiation beyond K1 (the
+# progressive path adds stats to each), on the scenes whose lights and
+# materials exercise it.
 CONFIGS = [
     ("demo2", False, False, True),
     ("demo2", True, False, False),
     ("demo3", True, False, False),
     ("demo3", False, True, False),
     ("demo3", True, True, False),
+    ("demo2", True, False, True),
+    ("demo3", False, True, True),
     ("demo3", True, True, True),
 ]
 
@@ -97,11 +100,11 @@ def test_kernel_configs_match_plain(card, name, nee, physical, stats):
     kw = dict(img_w=800, img_h=600, n_rows=4, root=4, max_depth=5, lights=lights, physical=physical,
               with_stats=stats)
     cfg = config_name(stats, nee, physical)
-    before = render_block_sweep.launches_by_config[cfg]
+    before = render_block_sweep.launches[cfg]
     k = render_block_sweep(sc, cam, 300, 0, 11, n_samples=16, **kw)
     k2 = render_block_sweep(sc, cam, 300, 0, 11, n_samples=16, **kw)
     torch.cuda.synchronize()
-    assert render_block_sweep.launches_by_config[cfg] == before + 2
+    assert render_block_sweep.launches[cfg] == before + 2
     assert k.shape == (4, 800, 4 if stats else 3)
     assert torch.equal(k.view(torch.int32), k2.view(torch.int32))
     p = render_block(sc, cam, 300, 0, 11, n_samples=16, **kw)

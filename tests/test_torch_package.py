@@ -110,9 +110,9 @@ def test_wrapper_takes_the_plain_path_on_cpu():
     sc = compile_scene(sd, "cpu")
     cam = camera_tensors(sd.camera_settings, sd.camera_data, sd.output_settings.pixel_size, "cpu")
     kw = dict(img_w=800, img_h=600, n_rows=1, n_samples=2, root=2, max_depth=3)
-    before = render_block_sweep.launches
+    before = render_block_sweep.launches.total()
     got = render_block_sweep(sc, cam, 300, 0, 9, **kw)
-    assert render_block_sweep.launches == before
+    assert render_block_sweep.launches.total() == before
     assert torch.equal(got, render_block(sc, cam, 300, 0, 9, **kw))
     with pytest.raises(ValueError):
         render_block_sweep(sc, cam, 300, 0, 9, bounce_counts=torch.zeros(800, dtype=torch.int32), **kw)
