@@ -6,15 +6,20 @@ reference's flux/src/main.rs:126-205): positional scene file, ``-r/--root``
 per band, default 50), ``--seed``, ``--output-dir``, ``--png``, the
 estimator flags ``--nee`` and ``--physical``, the progressive flags
 ``--progressive SPP``, ``--checkpoint PATH``, ``--adaptive TOL`` and
-``--resume``, and ``--device`` (``cuda`` by default; ``cpu`` runs the plain
+``--resume``, ``--accel`` (``sweep`` or ``scan``; by default the scan above
+64 spheres) and ``--device`` (``cuda`` by default; ``cpu`` runs the plain
 PyTorch version). Row bands render one after another through the port's
-``Renderer``; on the card each band is one launch of the sweep megakernel.
+``Renderer``; on the card each band is one launch of a megakernel (the
+sweep megakernel, or the scene megakernel for the scan and for triangles).
 The job, manager, worker and node path, the live preview and multi-device
 rendering are not ported yet (ROADMAP.md).
 
 Run: ``python -m flux_tpu_torch.cli scenes/demo2.yml -r 128 -d 5``, or
 ``python -m flux_tpu_torch.cli scenes/demo3.yml -r 32 -d 5 --nee --physical
---progressive 64 --checkpoint demo3.ckpt.npz``
+--progressive 64 --checkpoint demo3.ckpt.npz``, or
+``python -m flux_tpu_torch.cli scenes/spheres512.yml -r 8 -d 5`` (the scan),
+``python -m flux_tpu_torch.cli scenes/demo5.yml -r 32 -d 5 --nee`` (a mesh
+with a triangle light)
 """
 
 from __future__ import annotations
@@ -57,12 +62,19 @@ def build_parser() -> argparse.ArgumentParser:
         "--device",
         choices=("cuda", "cpu"),
         default="cuda",
-        help="cuda (default) runs the sweep megakernel; cpu its plain PyTorch version",
+        help="cuda (default) runs the megakernels; cpu their plain PyTorch version",
+    )
+    p.add_argument(
+        "--accel",
+        choices=("sweep", "scan"),
+        default=None,
+        help="sphere intersection: sweep (every sphere; at most 64) or scan (Morton-sorted "
+        "blocks with an AABB skip; any number). Default: scan above 64 spheres",
     )
     p.add_argument(
         "--nee",
         action="store_true",
-        help="next-event estimation: sample the sphere lights directly with shadow rays "
+        help="next-event estimation: sample the sphere and triangle lights directly with shadow rays "
         "at diffuse vertices",
     )
     p.add_argument(
@@ -152,8 +164,8 @@ def run(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     scene = load_scene(args.scene_file)
     renderer = Renderer(
-        scene, args.root, args.depth, seed=args.seed, device=args.device, nee=args.nee,
-        physical=args.physical,
+        scene, args.root, args.depth, seed=args.seed, device=args.device, accel=args.accel,
+        nee=args.nee, physical=args.physical,
     )
     if args.progressive:
         return run_progressive(args, scene, renderer)

@@ -29,17 +29,22 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..constants import T_MIN
 from ..scene import MaterialKind, SceneTensors
 from ..vec import Vec3, dot, reflect
 from ..vec import where as vwhere
 from .brdf import sample_directions
-from .intersect import intersect, sphere_t
+from .intersect import Intersector, sphere_t
 
 __all__ = ["PathState", "bounce"]
 
 _HALF_INV_PI = float(np.float32(0.5 / np.pi))
 _INV_PI = float(np.float32(1.0 / np.pi))
 _INV_TWO_PI = float(np.float32(1.0 / (2.0 * np.pi)))
+_T_MIN = float(np.float32(T_MIN))
+# A triangle light's shadow ray stops this hair short of the light.
+_TRI_SHADOW_SHRINK = float(np.float32(1.0 - 1e-4))
+_SWEEP = Intersector()
 
 
 class PathState(NamedTuple):
@@ -68,19 +73,23 @@ def bounce(
     state: PathState,
     sx,
     sy,
+    isect: Optional[Intersector] = None,
     first_bounce: bool = False,
     lights=None,
     nee_samples=None,
     physical: bool = False,
 ) -> PathState:
     """Advance every alive path by one bounce. ``sx``/``sy`` is this
-    bounce's stratified unit-square sample. ``first_bounce`` drops the
-    self-hit exclusion, since camera rays originate on no shape.
+    bounce's stratified unit-square sample. ``isect`` is the intersection
+    strategy (:class:`~flux_tpu_torch.ops.intersect.Intersector`; the sweep
+    by default). ``first_bounce`` drops the self-hit exclusion, since
+    camera rays originate on no shape.
     ``lights`` with ``nee_samples`` = (ux, uy, upick, active) turns on
     next-event estimation; ``active`` is False at the final depth, where the
     BSDF walk could no longer collect the light."""
     o, d, tput, rad, alive, prev_shape, suppress, prev_pdf, prev_normal = state
-    hit = intersect(scene, o, d) if first_bounce else intersect(scene, o, d, prev=prev_shape)
+    do_intersect = isect if isect is not None else _SWEEP
+    hit = do_intersect(scene, o, d) if first_bounce else do_intersect(scene, o, d, prev=prev_shape)
 
     miss = alive & ~hit.mask
     is_emissive = hit.kind == MaterialKind.EMISSIVE
@@ -136,15 +145,26 @@ def bounce(
         ux, uy, upick, nee_active = nee_samples
         ls = sample_light_dirs(lights, hit.point, ux, uy, upick, normal=hit.normal)
         cos_s = dot(hit.normal, ls.d)
-        # The light's own ray-t by the sweep's sphere rule, then an any-hit
-        # fold over every other shape; the shadow ray starts on hit.shape.
+        # The light's own ray-t by the sweep's sphere rule (a triangle light
+        # carries its sampled point's t), then an any-hit fold over every
+        # other shape; the shadow ray starts on hit.shape.
         if scene.unit_d:
             a_sh = inv_a_sh = None
         else:
             a_sh = dot(ls.d, ls.d)
             inv_a_sh = 1.0 / a_sh
         t_l, l_valid = sphere_t(hit.point, ls.d, a_sh, inv_a_sh, ls.center.x, ls.center.y, ls.center.z, ls.radius)
-        lit = l_valid & ~intersect.occluded(scene, hit.point, ls.d, t_l, ls.sidx, origin_idx=hit.shape)
+        t_sh = t_l
+        if ls.tri_mask is not None:
+            t_l = torch.where(ls.tri_mask, ls.tri_t, t_l)
+            l_valid = torch.where(ls.tri_mask, ls.tri_t > _T_MIN, l_valid)
+            # On triangle lanes only, the shadow ray stops a hair short: a
+            # point on the shared edge of a two-triangle light could else be
+            # shadowed by the neighbouring coplanar light triangle. Sphere
+            # lanes keep the exact t_l (a relative shrink there would open a
+            # light leak that grows with distance).
+            t_sh = torch.where(ls.tri_mask, t_l * _TRI_SHADOW_SHRINK, t_l)
+        lit = l_valid & ~do_intersect.occluded(scene, hit.point, ls.d, t_sh, ls.sidx, origin_idx=hit.shape)
         lit = lit & (cos_s > 0.0) & nee_active
         if physical:
             phong_l, pdf_g, _ = glossy_lobe(ls.d)

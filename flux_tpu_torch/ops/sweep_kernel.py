@@ -103,8 +103,9 @@ def pack_lights(lights: LightTensors) -> FluxLights:
     """The kernel's light record from the float32/int32 host copies of the
     light set, with the inverse map shape → light index."""
     n = lights.num_lights
-    if n > MAX_LIGHTS:
-        raise ValueError(f"the sweep megakernel takes at most {MAX_LIGHTS} lights, got {n}")
+    if n > MAX_LIGHTS or lights.has_tris:
+        raise ValueError(f"the sweep megakernel takes at most {MAX_LIGHTS} sphere lights, got {n}"
+                         + " with triangle lights" * lights.has_tris)
     h = lights.host
     st = FluxLights()
     st.n_lights = n
@@ -129,30 +130,39 @@ def config_name(with_stats: bool, nee: bool, physical: bool) -> str:
     return "sweep" + "+nee" * nee + "+physical" * physical + "+stats" * with_stats
 
 
-def pack_scene(scene: SceneTensors, cam: CameraTensors) -> FluxScene:
-    """The kernel's constant record, from the float32 host copies of the
-    scene and camera. Albedo is the float32 product color × param, and the
-    exponent has the two low mantissa bits clear, as the plain version
-    decodes it after packing the material kind there."""
-    ns, npl = scene.num_spheres, scene.num_planes
+def pack_scene(scene: SceneTensors, cam: CameraTensors, *, spheres: bool = True) -> FluxScene:
+    """The kernels' constant record, from the float32 host copies of the
+    scene and camera. Albedo is the float32 product color × param. With
+    ``spheres`` (the sweep) the record holds the spheres and, behind their
+    material rows, the planes'; exponents have the two low mantissa bits
+    clear, as the plain sweep decodes them after packing the material kind
+    there. Without (the scene megakernel's scan, whose spheres live in a
+    device table) it holds the planes only, their material rows from row 0
+    and their exponents as authored, as the plain scan gathers them.
+    Triangle rows are never part of it."""
+    ns, npl = (scene.num_spheres if spheres else 0), scene.num_planes
     if ns > MAX_SPHERES or npl > MAX_PLANES:
         raise ValueError(
-            f"the sweep megakernel takes at most {MAX_SPHERES} spheres and "
-            f"{MAX_PLANES} planes, got {ns} and {npl}"
+            f"the sweep takes at most {MAX_SPHERES} spheres and {MAX_PLANES} planes, "
+            f"got {ns} and {npl}; more spheres need accel='scan'"
         )
     h, c = scene.host, cam.host
     st = FluxScene()
     st.n_spheres, st.n_planes, st.unit_d = ns, npl, int(scene.unit_d)
     arr = np.ctypeslib.as_array
-    arr(st.sph)[:ns, :3] = h["sphere_center"]
-    arr(st.sph)[:ns, 3] = h["sphere_radius"]
-    arr(st.sph_invert)[:ns] = h["sphere_invert"]
+    arr(st.sph)[:ns, :3] = h["sphere_center"][:ns]
+    arr(st.sph)[:ns, 3] = h["sphere_radius"][:ns]
+    arr(st.sph_invert)[:ns] = h["sphere_invert"][:ns]
     arr(st.pl_point)[:npl, :3] = h["plane_point"]
     arr(st.pl_normal)[:npl, :3] = h["plane_normal"]
     n = ns + npl
-    arr(st.alb)[:n, :3] = h["mat_color"] * h["mat_param"][:, None]
-    arr(st.exponent)[:n] = (h["mat_exp"].view(np.uint32) & np.uint32(0xFFFFFFFC)).view(np.float32)
-    arr(st.kind)[:n] = h["mat_kind"]
+    rows = slice(0, n) if spheres else slice(scene.num_spheres, scene.num_spheres + npl)
+    arr(st.alb)[:n, :3] = (h["mat_color"] * h["mat_param"][:, None])[rows]
+    exp = h["mat_exp"][rows]
+    if spheres:
+        exp = (exp.view(np.uint32) & np.uint32(0xFFFFFFFC)).view(np.float32)
+    arr(st.exponent)[:n] = exp
+    arr(st.kind)[:n] = h["mat_kind"][rows]
     arr(st.bg)[:3] = h["background"]
     for k in ("eye", "u", "v", "w"):
         arr(getattr(st, k))[:3] = c[k]
@@ -244,6 +254,8 @@ def render_block_sweep(
     (bounces) for K1 and K2, ``(N_COUNTS, n_rows·img_w)`` with ``lights`` or
     ``physical`` (row 0 bounces; see :func:`flops_lower_bound`)."""
     dev = scene.device
+    if scene.num_triangles:
+        raise ValueError("the sweep megakernel takes no triangles; use render_block_scene")
     if dev.type == "cpu":
         if bounce_counts is not None:
             raise ValueError("bounce_counts is counted by the CUDA kernel only")

@@ -1,7 +1,9 @@
 """The renderer: radiance sums over row bands, and the single-device
 ``Renderer`` (``flux_tpu/render.py``).
 
-:func:`render_block` is the plain PyTorch version of the sweep megakernel:
+:func:`render_block` is the plain PyTorch version of the megakernels (the
+sweep megakernel with the default ``isect``; the scene megakernel with an
+``Intersector`` in scan mode or a scene with triangles):
 an eager wavefront over lanes ``(samples, rows, cols)`` that regenerates
 every lane's stratified samples from counters, builds thin-lens primary
 rays, runs ``max_depth`` bounces with alive-masking and sums radiance over
@@ -11,8 +13,11 @@ the NEE sample streams (``SALT_NEE`` for the cone point, ``SALT_NEEPICK``
 for the light pick) and gates the light sample off at the final depth.
 
 The ``Renderer`` renders a band of rows through
-:func:`flux_tpu_torch.ops.sweep_kernel.render_block_sweep`: the CUDA kernel
-on the card, its plain version on the CPU. Pixel averaging and the
+:func:`flux_tpu_torch.ops.sweep_kernel.render_block_sweep` (the sweep over
+at most 64 spheres, no triangles) or
+:func:`flux_tpu_torch.ops.scene_kernel.render_block_scene` (the scan over a
+sphere table of any size, and triangles): the CUDA kernel on the card, its
+plain version on the CPU. Pixel averaging and the
 ``max_to_one`` tone map (trace.rs:85-87) happen in :func:`finalize` once all
 samples of a pixel are summed.
 """
@@ -27,18 +32,23 @@ import torch
 from .camera import CameraTensors, camera_tensors, primary_rays
 from .color import luminance, max_to_one
 from .constants import SALT_AA, SALT_BOUNCE, SALT_LENS, SALT_NEE, SALT_NEEPICK
+from .ops.intersect import Intersector, scan_layout, tri_layout
 from .ops.nee import LightTensors, extract_lights
 from .ops.shade import PathState, bounce
 from .samplers.hash import MASK, hash_combine, randfloat
 from .samplers.patterns import bounce_point, cmj_point
 from .samplers.warps import to_poisson_disc
-from .scene import SceneData, SceneTensors, SphereData, TriangleData, compile_scene
+from .scene import SceneData, SceneTensors, compile_scene
 from .vec import Vec3
 
 __all__ = ["render_block", "finalize", "plan_chunks", "resolve_device", "Renderer"]
 
-# Sphere count above which flux_tpu's Renderer picks the blocked scan over
-# the sweep (flux_tpu/render.py:52); the port has no scan yet.
+# Sphere count above which the Renderer picks the blocked scan over the
+# sweep. flux_tpu chose 64 for XLA's compile time (flux_tpu/render.py:50-52),
+# which does not bind here; the port keeps the number so that both packages
+# take the same path for the same scene (it is also the sweep kernel's
+# constant-memory capacity). Where the scan starts to win on the card is
+# still to be measured.
 SCAN_AUTO_THRESHOLD = 64
 
 
@@ -60,13 +70,15 @@ def render_block(
     with_stats: bool = False,
     lights: Optional[LightTensors] = None,
     physical: bool = False,
+    isect: Optional[Intersector] = None,
 ) -> torch.Tensor:
     """Radiance sum over sample indices [s0, s0+n_samples) for a band of
     rows ``row0 + k·row_stride``. Returns ``(n_rows, img_w, 3)`` float32
     (a fourth channel, the per-pixel Σ luminance², with ``with_stats``).
     Lanes whose sample index is ``>= s_limit`` add nothing. ``lights``
     turns on next-event estimation and ``physical`` the physical transport
-    (with both: MIS). The contract of ``flux_tpu.render.render_block_impl``."""
+    (with both: MIS); ``isect`` is the intersection strategy (the sweep by
+    default). The contract of ``flux_tpu.render.render_block_impl``."""
     dev = scene.device
     s_idx = ((int(s0) + torch.arange(n_samples, dtype=torch.int64, device=dev)) & MASK)[:, None, None]
     row = (int(row0) + torch.arange(n_rows, dtype=torch.int32, device=dev) * int(row_stride))[None, :, None]
@@ -114,7 +126,7 @@ def render_block(
             # the next vertex, which a depth-capped walk never reaches.
             nee_samples = (ux.expand(shape), uy.expand(shape), upick.expand(shape), depth < max_depth)
         state = bounce(
-            scene, state, bx.expand(shape), by.expand(shape), first_bounce=depth == 1,
+            scene, state, bx.expand(shape), by.expand(shape), isect=isect, first_bounce=depth == 1,
             lights=lights, nee_samples=nee_samples, physical=physical,
         )
     rad = state.radiance
@@ -158,19 +170,21 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
-
-
 class Renderer:
     """Single-device renderer: compiles a scene once and renders row bands
     at full sample depth (the contract of ``flux_tpu.render.Renderer``).
 
-    On the card each band is one launch of the sweep megakernel with every
+    ``accel`` picks the sphere intersection: ``"sweep"`` (every sphere, from
+    constant memory on the card; at most 64), ``"scan"`` (Morton-sorted
+    blocks with an AABB skip; any number), or None for the scan above
+    ``SCAN_AUTO_THRESHOLD`` spheres. Triangles fold in after either. The
+    ``Intersector`` and both block tables are built once, here.
+
+    On the card each band is one launch of a megakernel with every
     requested sample. On the CPU the plain version runs, in sample chunks of
     about ``target_lanes`` lanes. ``nee`` and ``physical`` select the
     estimator as in ``flux_tpu``; ``.nee``, ``.physical`` and ``.lights``
-    say what was built (``nee`` is False for a scene with no sphere light).
+    say what was built (``nee`` is False for a scene with no light).
     """
 
     def __init__(
@@ -186,24 +200,23 @@ class Renderer:
         physical: bool = False,
     ):
         self.device = resolve_device(device)
-        # Next-event estimation over the scene's sphere lights (None, and
-        # nee False, when it has none; emissive triangles raise), and
-        # physical transport.
+        self.scene = compile_scene(scene_data, self.device)
+        if accel is None:
+            accel = "scan" if self.scene.num_spheres > SCAN_AUTO_THRESHOLD else "sweep"
+        if accel not in ("sweep", "scan"):
+            raise ValueError(f"unknown accel {accel!r}")
+        self.accel = accel
+        self.isect = Intersector(
+            layout=scan_layout(self.scene) if accel == "scan" else None,
+            mode=accel,
+            tri_layout=tri_layout(self.scene) if self.scene.num_triangles else None,
+        )
+        # Next-event estimation over the scene's sphere and triangle lights
+        # (None, and nee False, when it has none), and physical transport.
         self.lights = extract_lights(scene_data, self.device) if nee else None
         self.nee = self.lights is not None
         self.physical = bool(physical)
-        if any(isinstance(s, TriangleData) for s in scene_data.shapes):
-            raise _not_ported("triangle geometry", "queue B: K6")
-        if accel is None:
-            n_spheres = sum(isinstance(s, SphereData) for s in scene_data.shapes)
-            accel = "scan" if n_spheres > SCAN_AUTO_THRESHOLD else "sweep"
-        if accel == "scan":
-            raise _not_ported("scan intersection (picked above 64 spheres)", "queue B: K5")
-        if accel != "sweep":
-            raise ValueError(f"unknown accel {accel!r}")
-        self.accel = accel
         self.scene_data = scene_data
-        self.scene = compile_scene(scene_data, self.device)
         self.cam = camera_tensors(
             scene_data.camera_settings,
             scene_data.camera_data,
@@ -219,9 +232,15 @@ class Renderer:
 
     def _chunk_size(self, n_rows: int, n_samples: int) -> int:
         if self.device.type == "cuda":
-            # The kernel keeps no per-lane state in memory: one launch.
+            # The kernels keep no per-lane state in memory: one launch.
             return n_samples
         return max(1, self.target_lanes // max(n_rows * self.width, 1))
+
+    @property
+    def uses_sweep_kernel(self) -> bool:
+        """True where a band goes to the sweep megakernel (K1-K4), False
+        where it goes to the scene megakernel (scan or triangles)."""
+        return self.accel == "sweep" and self.scene.num_triangles == 0
 
     def render_rows_sum(self, row0: int, n_rows: int) -> torch.Tensor:
         """Radiance sum over all root² samples for a row band."""
@@ -233,11 +252,15 @@ class Renderer:
         """Radiance sum over sample indices [s0, s0 + n_samples) for a row
         band, ``(n_rows, width, 3)`` on the renderer's device (a fourth
         channel, Σ luminance², with ``with_stats``)."""
+        from .ops.scene_kernel import render_block_scene
         from .ops.sweep_kernel import render_block_sweep
 
+        kernel, extra = render_block_sweep, {}
+        if not self.uses_sweep_kernel:
+            kernel, extra = render_block_scene, {"isect": self.isect}
         acc = None
         for off, n in plan_chunks(n_samples, self._chunk_size(n_rows, n_samples)):
-            part = render_block_sweep(
+            part = kernel(
                 self.scene,
                 self.cam,
                 row0,
@@ -252,6 +275,7 @@ class Renderer:
                 with_stats=with_stats,
                 lights=self.lights,
                 physical=self.physical,
+                **extra,
             )
             acc = part if acc is None else acc + part
         return acc

@@ -8,8 +8,9 @@ fluxcore/src/scene.rs:42-74, shapes.rs:15-81). ``SceneData.to_dict`` and
 
 The runtime side, :class:`SceneTensors`, is the twin of the JAX package's
 ``SceneArrays``: sphere centers, radii and invert signs, plane points and
-normals, and a flat material table indexed by shape (spheres first, then
-planes), as tensors on one device.
+normals, triangles in Möller–Trumbore form, and a flat material table
+indexed by shape (spheres first, then planes, then triangles), as tensors on
+one device.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ __all__ = [
     "loads_scene",
     "compile_scene",
     "scene_from_numpy",
+    "SCENE_FIELDS",
+    "TRI_FIELDS",
 ]
 
 
@@ -366,8 +369,8 @@ def load_scene(path: str) -> SceneData:
         return loads_scene(f.read())
 
 
-# The fields of the JAX package's SceneArrays that the sweep path reads, in
-# the order scene_from_numpy takes them.
+# The fields of the JAX package's SceneArrays, in the order scene_from_numpy
+# takes them; the triangle fields may be absent (a triangle-free scene).
 SCENE_FIELDS = (
     "sphere_center",
     "sphere_radius",
@@ -380,6 +383,7 @@ SCENE_FIELDS = (
     "mat_exp",
     "background",
 )
+TRI_FIELDS = ("tri_v0", "tri_e1", "tri_e2", "tri_n")
 
 
 @dataclass(frozen=True, eq=False)
@@ -387,13 +391,15 @@ class SceneTensors:
     """Device-resident scene: the twin of ``flux_tpu.scene.SceneArrays``.
 
     Materials live in a flat table indexed by shape id (spheres, then
-    planes). ``sphere_invert`` holds the reference's normal-flip flag as ±1
-    (shapes.rs:183). ``unit_d`` says that every ray direction in this scene
-    is a unit vector, so the sphere quadratic may take ``a == 1`` exactly;
-    it holds when every authored plane normal is unit (see
-    :func:`compile_scene`). ``host`` keeps the float32 numpy arrays the
-    tensors were made from, so the CUDA kernel's constant upload reads no
-    device memory back.
+    planes, then triangles). ``sphere_invert`` holds the reference's
+    normal-flip flag as ±1 (shapes.rs:183). Triangles are kept in
+    Möller–Trumbore form: ``v0``, the two edge vectors and the unit
+    geometric normal (counter-clockwise winding). ``unit_d`` says that every
+    ray direction in this scene is a unit vector, so the sphere quadratic
+    may take ``a == 1`` exactly; it holds when every authored plane normal is
+    unit (see :func:`compile_scene`). ``host`` keeps the float32 numpy arrays
+    the tensors were made from, so the CUDA kernels' uploads read no device
+    memory back.
     """
 
     sphere_center: torch.Tensor  # (Ns, 3) f32
@@ -401,11 +407,15 @@ class SceneTensors:
     sphere_invert: torch.Tensor  # (Ns,)   f32 (+1 / -1)
     plane_point: torch.Tensor  # (Np, 3) f32
     plane_normal: torch.Tensor  # (Np, 3) f32
-    mat_kind: torch.Tensor  # (Ns+Np,) i32
-    mat_color: torch.Tensor  # (Ns+Np, 3) f32
-    mat_param: torch.Tensor  # (Ns+Np,) f32
-    mat_exp: torch.Tensor  # (Ns+Np,) f32
+    mat_kind: torch.Tensor  # (Ns+Np+Nt,) i32
+    mat_color: torch.Tensor  # (Ns+Np+Nt, 3) f32
+    mat_param: torch.Tensor  # (Ns+Np+Nt,) f32
+    mat_exp: torch.Tensor  # (Ns+Np+Nt,) f32
     background: torch.Tensor  # (3,) f32
+    tri_v0: torch.Tensor = None  # (Nt, 3) f32
+    tri_e1: torch.Tensor = None  # (Nt, 3) f32  v1 - v0
+    tri_e2: torch.Tensor = None  # (Nt, 3) f32  v2 - v0
+    tri_n: torch.Tensor = None  # (Nt, 3) f32  unit normal
     unit_d: bool = True
     host: dict = field(default=None, repr=False)
 
@@ -418,35 +428,42 @@ class SceneTensors:
         return self.plane_point.shape[0]
 
     @property
+    def num_triangles(self) -> int:
+        return 0 if self.tri_v0 is None else self.tri_v0.shape[0]
+
+    @property
     def device(self) -> torch.device:
         return self.sphere_center.device
 
 
 def scene_from_numpy(arrays: dict, unit_d: bool, device) -> SceneTensors:
     """SceneTensors from the JAX package's ``SceneArrays`` fields as numpy
-    arrays (``SCENE_FIELDS``), so both packages compute on the same float32
-    constants. Triangle fields, if present, must be empty."""
-    if any(np.size(arrays.get(k, ())) for k in ("tri_v0", "tri_e1", "tri_e2", "tri_n")):
-        raise NotImplementedError(
-            "triangle geometry is not ported yet (ROADMAP.md, queue B: K6)"
-        )
+    arrays (``SCENE_FIELDS`` and, for a scene with triangles,
+    ``TRI_FIELDS``), so both packages compute on the same float32
+    constants."""
     dtypes = {"mat_kind": np.int32}
     host = {
         k: np.ascontiguousarray(np.asarray(arrays[k], dtypes.get(k, np.float32)))
         for k in SCENE_FIELDS
     }
+    for k in TRI_FIELDS:
+        v = arrays.get(k)
+        host[k] = np.ascontiguousarray(np.asarray(() if v is None else v, np.float32))
     ns, npl = host["sphere_center"].reshape(-1, 3).shape[0], host["plane_point"].reshape(-1, 3).shape[0]
+    nt = host["tri_v0"].reshape(-1, 3).shape[0]
+    n = ns + npl + nt
     shapes = {
         "sphere_center": (ns, 3),
         "sphere_radius": (ns,),
         "sphere_invert": (ns,),
         "plane_point": (npl, 3),
         "plane_normal": (npl, 3),
-        "mat_kind": (ns + npl,),
-        "mat_color": (ns + npl, 3),
-        "mat_param": (ns + npl,),
-        "mat_exp": (ns + npl,),
+        "mat_kind": (n,),
+        "mat_color": (n, 3),
+        "mat_param": (n,),
+        "mat_exp": (n,),
         "background": (3,),
+        **{k: (nt, 3) for k in TRI_FIELDS},
     }
     host = {k: v.reshape(shapes[k]) for k, v in host.items()}
     tensors = {k: torch.from_numpy(v.copy()).to(device) for k, v in host.items()}
@@ -454,16 +471,24 @@ def scene_from_numpy(arrays: dict, unit_d: bool, device) -> SceneTensors:
 
 
 def compile_scene(sd: SceneData, device) -> SceneTensors:
-    """Compile SceneData to device tensors (``flux_tpu.scene.compile_scene``
-    for sphere and plane scenes; the ``Scene::from_data`` analog,
-    scene.rs:128-154)."""
+    """Compile SceneData to device tensors (``flux_tpu.scene.compile_scene``;
+    the ``Scene::from_data`` analog, scene.rs:128-154)."""
     spheres = [s for s in sd.shapes if isinstance(s, SphereData)]
     planes = [p for p in sd.shapes if isinstance(p, PlaneData)]
-    if any(isinstance(t, TriangleData) for t in sd.shapes):
-        raise NotImplementedError(
-            "triangle geometry is not ported yet (ROADMAP.md, queue B: K6)"
-        )
-    mats = [s.material for s in spheres] + [p.material for p in planes]
+    tris = [t for t in sd.shapes if isinstance(t, TriangleData)]
+    # Material table order: spheres, planes, triangles.
+    mats = [s.material for s in spheres] + [p.material for p in planes] + [t.material for t in tris]
+    # Möller–Trumbore precompute in float64 on the host, rounded once.
+    nt = len(tris)
+    v0 = np.asarray([t.v0 for t in tris], np.float64).reshape(nt, 3)
+    e1 = np.asarray([t.v1 for t in tris], np.float64).reshape(nt, 3) - v0
+    e2 = np.asarray([t.v2 for t in tris], np.float64).reshape(nt, 3) - v0
+    tn = np.cross(e1, e2)
+    tn_len = np.linalg.norm(tn, axis=1, keepdims=True)
+    if nt and (tn_len == 0.0).any():
+        bad = int(np.argmax(tn_len[:, 0] == 0.0))
+        raise ValueError(f"degenerate triangle (zero-area) at index {bad}")
+    tn = tn / np.maximum(tn_len, 1e-300)
     # A scene whose plane normals are all unit keeps every ray direction
     # unit (camera rays are normalized, BRDF lobes come from orthonormal
     # frames, and mirror reflection about a unit normal keeps length).
@@ -477,6 +502,10 @@ def compile_scene(sd: SceneData, device) -> SceneTensors:
         "sphere_invert": [-1.0 if s.invert else 1.0 for s in spheres],
         "plane_point": [p.point for p in planes],
         "plane_normal": [p.normal for p in planes],
+        "tri_v0": v0,
+        "tri_e1": e1,
+        "tri_e2": e2,
+        "tri_n": tn,
         "mat_kind": [m.kind for m in mats],
         "mat_color": [m.color for m in mats],
         "mat_param": [m.param for m in mats],

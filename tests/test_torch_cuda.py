@@ -1,6 +1,8 @@
-"""The sweep megakernel on a CUDA card against its plain PyTorch version,
-in each of its 8 instantiations (K1; K2 stats; K3 NEE; K4 physical, and
-MIS with NEE; each of these with stats).
+"""The megakernels on a CUDA card against their plain PyTorch version: the
+sweep megakernel in each of its 8 instantiations (K1; K2 stats; K3 NEE; K4
+physical, and MIS with NEE; each of these with stats), and the scene
+megakernel in its scan (K5), triangle (K6) and triangle-light (K7)
+configurations, with the skip on and off and scan against sweep bitwise.
 
 Marked ``cuda``: each test skips without a card. This file imports neither
 JAX nor ``flux_tpu``, so it also runs on a machine with the card and no JAX:
@@ -15,9 +17,13 @@ import pytest
 import torch
 
 from flux_tpu_torch.camera import camera_tensors
+from flux_tpu_torch.genscene import sphere_field
+from flux_tpu_torch.ops import scene_kernel
+from flux_tpu_torch.ops.intersect import Intersector, scan_layout, tri_layout
 from flux_tpu_torch.ops.nee import extract_lights
+from flux_tpu_torch.ops.scene_kernel import render_block_scene
 from flux_tpu_torch.ops.sweep_kernel import config_name, render_block_sweep
-from flux_tpu_torch.render import finalize, render_block
+from flux_tpu_torch.render import Renderer, finalize, render_block
 from flux_tpu_torch.scene import (
     CameraData,
     CameraSettings,
@@ -158,3 +164,101 @@ def test_kernel_matches_plain_edge_scenes(card, case):
     assert torch.isclose(k, p, rtol=1e-5, atol=1e-6).float().mean() >= 0.99
     fd = (finalize(k, root=4) - finalize(p, root=4)).abs()
     assert fd.mean() < 1e-3 and (fd > 5e-3).float().mean() < 0.01
+
+
+# (scene, accel, nee, physical, stats): the scene megakernel's
+# configurations on the stock scenes that reach them. spheres512 has 16
+# emissive spheres (the any-hit scan fold), demo5 a two-triangle light.
+SCENE_CONFIGS = [
+    ("spheres512", "scan", False, False, False),
+    ("spheres512", "scan", True, False, True),
+    ("spheres512", "scan", True, True, False),
+    ("mesh_ico", "sweep", False, False, False),
+    ("mesh_ico", "sweep", True, True, True),
+    ("demo4", "sweep", True, False, False),
+    ("demo5", "sweep", False, False, True),
+    ("demo5", "sweep", True, False, False),
+    ("demo5", "sweep", True, True, False),
+    ("demo5", "scan", True, True, True),
+]
+
+
+def _scene_setup(card, name, accel, nee):
+    sd = load_scene(os.path.join(SCENES, f"{name}.yml"))
+    sc = compile_scene(sd, card)
+    cam = camera_tensors(sd.camera_settings, sd.camera_data, sd.output_settings.pixel_size, card)
+    isect = Intersector(
+        layout=scan_layout(sc) if accel == "scan" else None, mode=accel,
+        tri_layout=tri_layout(sc) if sc.num_triangles else None,
+    )
+    w, h = sd.output_settings.image_width, sd.output_settings.image_height
+    return sc, cam, isect, (extract_lights(sd, card) if nee else None), w, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, accel, nee, physical, stats", SCENE_CONFIGS)
+def test_scene_kernel_configs_match_plain(card, name, accel, nee, physical, stats):
+    """K5 (scan), K6 (triangles) and K7 (triangle lights) against the plain
+    version on a full-width band: bitwise deterministic, the launch counted
+    under its configuration's name, the skip off and the single-level skip
+    bitwise equal to the two-level one, sums within float32 rounding on 99%
+    of values (rtol 1e-4, as for the sweep megakernel), the finalized gate,
+    and sample ranges that add up."""
+    sc, cam, isect, lights, w, h = _scene_setup(card, name, accel, nee)
+    kw = dict(isect=isect, img_w=w, img_h=h, n_rows=4, root=4, max_depth=5, lights=lights,
+              physical=physical, with_stats=stats)
+    cfg = scene_kernel.config_name(accel, sc.num_triangles > 0, stats, nee, physical,
+                                   tri_lights=nee and lights.has_tris)
+    before = render_block_scene.launches[cfg]
+    k = render_block_scene(sc, cam, h // 2, 0, 11, n_samples=16, **kw)
+    k2 = render_block_scene(sc, cam, h // 2, 0, 11, n_samples=16, **kw)
+    torch.cuda.synchronize()
+    assert render_block_scene.launches[cfg] == before + 2
+    assert k.shape == (4, w, 4 if stats else 3)
+    assert torch.equal(k.view(torch.int32), k2.view(torch.int32))
+    for off in (dict(scan_skip=False, tri_skip=False), dict(two_level=False)):
+        ko = render_block_scene(sc, cam, h // 2, 0, 11, n_samples=16, **kw, **off)
+        assert torch.equal(k.view(torch.int32), ko.view(torch.int32)), off
+    p = render_block(sc, cam, h // 2, 0, 11, n_samples=16, **kw)
+    assert torch.isclose(k, p, rtol=1e-4, atol=1e-5).float().mean() >= 0.99
+    fd = (finalize(k[..., :3], root=4) - finalize(p[..., :3], root=4)).abs()
+    assert fd.mean() < 1e-3 and (fd > 5e-3).float().mean() < 0.01
+    parts = render_block_scene(sc, cam, h // 2, 0, 11, n_samples=8, **kw) + render_block_scene(
+        sc, cam, h // 2, 8, 11, n_samples=8, **kw)
+    assert float(((parts - k).abs() / k.abs().clamp_min(1e-30)).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [24, 40])
+@pytest.mark.parametrize("nee, physical", [(False, False), (True, True)])
+def test_scene_kernel_scan_equals_sweep_kernel_bitwise(card, n, nee, physical):
+    """The scan over the sphere table and the sweep megakernel give the same
+    bits on whole launches (the same quadratic, invert/radius and
+    color × param values; ties to the lowest index), as the JAX package
+    holds its scan to its sweep."""
+    sd = sphere_field(n, seed=3, width=160, height=120)
+    scan = Renderer(sd, 4, 5, seed=1, device=card, accel="scan", nee=nee, physical=physical)
+    sweep = Renderer(sd, 4, 5, seed=1, device=card, accel="sweep", nee=nee, physical=physical)
+    assert not scan.uses_sweep_kernel and sweep.uses_sweep_kernel
+    a = scan.render_rows_sum_range(0, 120, 0, 16, with_stats=True)
+    b = sweep.render_rows_sum_range(0, 120, 0, 16, with_stats=True)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.isfinite(a).float().mean() > 0.999
+
+
+@pytest.mark.cuda
+def test_scene_kernel_work_counts(card):
+    """The work counters: a perfect skip needs no more blocks than the walk
+    entered, the walk entered no more than it tested, and with the skip off
+    every block of every fold is entered."""
+    sc, cam, isect, lights, w, h = _scene_setup(card, "spheres512", "scan", True)
+    kw = dict(isect=isect, img_w=w, img_h=h, n_rows=2, n_samples=4, root=2, max_depth=4, lights=lights)
+    counts = torch.zeros((scene_kernel.N_COUNTS, 2 * w), dtype=torch.int32, device=card)
+    render_block_scene(sc, cam, h // 2, 0, 5, work_counts=counts, **kw)
+    c = dict(zip(scene_kernel.COUNT_NAMES, counts.to(torch.int64).sum(dim=1).tolist()))
+    assert 0 < c["sphere_blocks_needed"] <= c["sphere_blocks_entered"] <= c["sphere_box_tests"]
+    assert c["bounces"] >= 2 * w * 4 and c["shadow_folds"] > 0 and c["tri_blocks_entered"] == 0
+    render_block_scene(sc, cam, h // 2, 0, 5, work_counts=counts, scan_skip=False, **kw)
+    c2 = dict(zip(scene_kernel.COUNT_NAMES, counts.to(torch.int64).sum(dim=1).tolist()))
+    assert c2["bounces"] == c["bounces"] and c2["sphere_box_tests"] == 0
+    assert c2["sphere_blocks_entered"] >= c2["bounces"] * isect.layout.n_blocks

@@ -58,7 +58,8 @@ def _jax_scene(name, w=None, h=None):
 
 def carry_lights(jl):
     """The port's light set on the CPU from the JAX package's LightArrays."""
-    return nee.lights_from_numpy({f: np.asarray(getattr(jl, f)) for f in nee.LIGHT_FIELDS}, "cpu")
+    fields = nee.LIGHT_FIELDS + (nee.TRI_LIGHT_FIELDS if jl.has_tris else ())
+    return nee.lights_from_numpy({f: np.asarray(getattr(jl, f)) for f in fields}, "cpu")
 
 
 def _tv(a):
@@ -88,19 +89,17 @@ def _close(got, want, rtol, atol=0.0):
 
 @pytest.mark.parametrize("name", SCENES)
 def test_extract_lights_matches_jax(name):
-    """Same light set as flux_tpu: pick and cdf bit-equal; a scene with an
-    emissive triangle raises (triangle lights are K7, not ported)."""
+    """Same light set as flux_tpu: every field bit-equal, pick and cdf
+    included; a scene with an emissive triangle (demo5) also fills the
+    triangle-light fields and the per-light kinds."""
     jl = jnee.extract_lights(j_load_scene(_scene_path(name)))
     sd = load_scene(_scene_path(name))
-    if jl is not None and jl.has_tris:
-        with pytest.raises(NotImplementedError, match="K7"):
-            nee.extract_lights(sd, "cpu")
-        return
     tl = nee.extract_lights(sd, "cpu")
     if jl is None:
         assert tl is None
         return
-    for f in nee.LIGHT_FIELDS:
+    assert tl.has_tris == jl.has_tris and tl.kinds == jl.kinds
+    for f in nee.LIGHT_FIELDS + (nee.TRI_LIGHT_FIELDS if jl.has_tris else ()):
         np.testing.assert_array_equal(getattr(tl, f).numpy(), np.asarray(getattr(jl, f)), err_msg=f)
     assert getattr(tl, "shape_idx").dtype == torch.int32
 

@@ -31,7 +31,14 @@ from flux_tpu_torch.ops.brdf import sample_directions
 from flux_tpu_torch.ops.intersect import intersect
 from flux_tpu_torch.ops.shade import PathState, bounce
 from flux_tpu_torch.ops.sweep_kernel import pack_scene
-from flux_tpu_torch.scene import SCENE_FIELDS, SceneData, compile_scene, load_scene, scene_from_numpy
+from flux_tpu_torch.scene import (
+    SCENE_FIELDS,
+    TRI_FIELDS,
+    SceneData,
+    compile_scene,
+    load_scene,
+    scene_from_numpy,
+)
 from flux_tpu_torch.vec import Vec3
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -41,7 +48,7 @@ EPS = float(np.spacing(np.float32(1.0)))
 
 def carry_scene(jax_scene):
     """The port's scene on the CPU from the JAX package's SceneArrays."""
-    arrays = {f: np.asarray(getattr(jax_scene, f)) for f in SCENE_FIELDS}
+    arrays = {f: np.asarray(getattr(jax_scene, f)) for f in SCENE_FIELDS + TRI_FIELDS}
     return scene_from_numpy(arrays, jax_scene.unit_d, "cpu")
 
 

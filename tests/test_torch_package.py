@@ -17,6 +17,7 @@ from flux_tpu.image import ppm_bytes as j_ppm_bytes
 from flux_tpu.scene import load_scene as j_load_scene
 from flux_tpu_torch import cli
 from flux_tpu_torch.camera import camera_tensors
+from flux_tpu_torch.ops.scene_kernel import render_block_scene
 from flux_tpu_torch.ops.sweep_kernel import render_block_sweep
 from flux_tpu_torch.render import Renderer, render_block
 from flux_tpu_torch.scene import MaterialData, MaterialKind, TriangleData, compile_scene, load_scene
@@ -89,20 +90,34 @@ def _with_triangle(sd, kind):
 
 
 @pytest.mark.parametrize(
-    "change, kwargs, item",
+    "change, kwargs, accel",
     [
-        (None, {"accel": "scan"}, "K5"),
-        (MaterialKind.MATTE, {}, "K6"),
-        (MaterialKind.EMISSIVE, {"nee": True}, "K7"),
+        (None, {"accel": "scan"}, "scan"),
+        (MaterialKind.MATTE, {}, "sweep"),
+        (MaterialKind.EMISSIVE, {"nee": True}, "sweep"),
     ],
     ids=["scan", "triangles", "triangle_lights"],
 )
-def test_unported_options_raise(tmp_path, change, kwargs, item):
+def test_unported_options_raise(tmp_path, change, kwargs, accel):
+    """The options earlier slices of the port refused (the scan, triangle
+    geometry, triangle lights) no longer raise: each renders a finite frame
+    through the scene megakernel's route, and the frame shows the option at
+    work (the scan equals the sweep bit for bit; a matte triangle changes
+    pixels; a triangle light is in the light set and adds light)."""
     sd = load_scene(str(_tiny_scene(tmp_path)))
+    base = Renderer(sd, 2, 2, device="cpu", nee=kwargs.get("nee", False)).render_image()
     if change is not None:
         sd = _with_triangle(sd, change)
-    with pytest.raises(NotImplementedError, match=item):
-        Renderer(sd, 1, 2, device="cpu", **kwargs)
+    r = Renderer(sd, 2, 2, device="cpu", **kwargs)
+    assert r.accel == accel and not r.uses_sweep_kernel
+    img = r.render_image()
+    assert img.shape == base.shape and np.isfinite(img).all()
+    if change is None:
+        np.testing.assert_array_equal(img, base)
+    else:
+        assert r.scene.num_triangles == 1 and np.abs(img - base).max() > 1e-3
+    if change == MaterialKind.EMISSIVE:
+        assert r.lights.has_tris and r.lights.kinds[-1] == "tri"
 
 
 def test_wrapper_takes_the_plain_path_on_cpu():
@@ -116,6 +131,15 @@ def test_wrapper_takes_the_plain_path_on_cpu():
     assert torch.equal(got, render_block(sc, cam, 300, 0, 9, **kw))
     with pytest.raises(ValueError):
         render_block_sweep(sc, cam, 300, 0, 9, bounce_counts=torch.zeros(800, dtype=torch.int32), **kw)
+    # The scene megakernel's wrapper takes the same route on the CPU.
+    r = Renderer(sd, 2, 3, device="cpu", accel="scan")
+    before = render_block_scene.launches.total()
+    got = render_block_scene(sc, cam, 300, 0, 9, isect=r.isect, **kw)
+    assert render_block_scene.launches.total() == before
+    assert torch.equal(got, render_block(sc, cam, 300, 0, 9, isect=r.isect, **kw))
+    with pytest.raises(ValueError):
+        render_block_scene(sc, cam, 300, 0, 9, isect=r.isect,
+                           work_counts=torch.zeros((12, 800), dtype=torch.int32), **kw)
 
 
 def test_cli_cpu_writes_the_jax_packages_ppm_bytes(tmp_path):

@@ -19,7 +19,6 @@ from flux_tpu import checkpoint as jcp
 from flux_tpu.camera import camera_arrays as j_camera_arrays
 from flux_tpu.ops.nee import extract_lights as j_extract_lights
 from flux_tpu.render import render_block_impl
-from flux_tpu.scene import TriangleData as JTriangleData
 from flux_tpu.scene import compile_scene as j_compile_scene
 from flux_tpu.scene import load_scene as j_load_scene
 from flux_tpu_torch import checkpoint as cp
@@ -37,15 +36,12 @@ def _loaded(name):
     return j_load_scene(path), load_scene(path)
 
 
-# The sweep scenes: every stock scene without triangles.
-SWEEP_SCENES = [
-    name for name in sorted(os.listdir(SCENE_DIR))
-    if name.endswith(".yml") and not any(isinstance(s, JTriangleData) for s in _loaded(name)[0].shapes)
-]
+# Every stock scene: sweep scenes, the scan scene and the triangle scenes.
+STOCK_SCENES = [name for name in sorted(os.listdir(SCENE_DIR)) if name.endswith(".yml")]
 
 
 @pytest.mark.parametrize("nee, physical", FLAGS, ids=["ref", "nee", "physical", "mis"])
-@pytest.mark.parametrize("name", SWEEP_SCENES)
+@pytest.mark.parametrize("name", STOCK_SCENES)
 def test_fingerprint_equals_jax(name, nee, physical):
     jsd, sd = _loaded(name)
     assert cp._config_fingerprint(sd, 32, 5, 7, nee=nee, physical=physical) == jcp._config_fingerprint(
@@ -122,6 +118,37 @@ def test_port_checkpoint_loads_in_jax(tiny3, tmp_path):
     np.testing.assert_array_equal(acc, pr.acc)
     np.testing.assert_array_equal(lum_sq, pr.lum_sq)
     _mostly_close(acc, _jax_sums(path, 0)[..., :3])
+
+
+def test_checkpoints_interchange_on_a_triangle_scene(tmp_path):
+    """mesh_ico at 12x9 (320 triangles under the sweep, the scene
+    megakernel's route): a checkpoint the port wrote after one pass loads in
+    flux_tpu under an equal fingerprint, and one flux_tpu wrote resumes in
+    the port, which finishes it to the sums of an uninterrupted render."""
+    doc = yaml.safe_load(open(os.path.join(SCENE_DIR, "mesh_ico.yml")).read())
+    doc["output_settings"].update(image_width=12, image_height=9, pixel_size=800 / 12)
+    path = str(tmp_path / "tinymesh.yml")
+    open(path, "w").write(yaml.safe_dump(doc))
+    fp = jcp._config_fingerprint(j_load_scene(path), ROOT, DEPTH, SEED, nee=True, physical=True)
+    pr = _port(path)
+    assert pr.fingerprint == fp and pr._r.scene.num_triangles == 320 and not pr._r.uses_sweep_kernel
+    assert pr.render_pass(2) == 2
+    ck = str(tmp_path / "port.npz")
+    pr.save(ck)
+    acc, done, got_fp, lum_sq, valid = jcp.load_checkpoint(ck)
+    assert (done, got_fp, valid) == (2, fp, True)
+    np.testing.assert_array_equal(acc, pr.acc)
+    jck = str(tmp_path / "jax.npz")
+    jcp.save_checkpoint(jck, acc, done, fp, lum_sq)  # as flux_tpu writes it
+    resumed = _port(path)
+    resumed.resume(jck)
+    assert resumed.samples_done == 2 and resumed.render_pass(8) == 2 and resumed.complete
+    whole = _port(path)
+    whole.render_pass(2)
+    whole.render_pass(2)
+    np.testing.assert_array_equal(resumed.acc, whole.acc)
+    np.testing.assert_array_equal(resumed.lum_sq, whole.lum_sq)
+    assert np.isfinite(whole.acc).all() and whole.acc.max() > 0
 
 
 @pytest.mark.parametrize("percentile", [50.0, 99.0])
