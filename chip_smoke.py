@@ -57,7 +57,9 @@ Phases, in order; any failure exits non-zero before the result line:
       match one launch of all 64 samples within 1e-5 relative;
    g. demo3 progressive physical: the same with ``--physical``;
 9. measurement of each new instantiation at its path's launch shape, as
-   in phase 6, with phase 7's gate;
+   in phase 6, with phase 7's gate; each measurement prints the launch
+   plan (threads per pixel, pixels per block, blocks, blocks resident per
+   SM, waves) beside the time;
 10. the scene megakernel (scan with block skip, triangle fold, triangle
    lights) against its plain version on an 8-row band at the scene's full
    width, root 4, depth 5, seed 42, at phase 3's gates: the scan on
@@ -90,6 +92,12 @@ Phases, in order; any failure exits non-zero before the result line:
    2-4 rows (the whole launch would take minutes; demo5's 1024-spp band is
    run whole), and those rows of the path's own launch held against it; the
    skips timed on and off.
+14. design checks: the counting instantiation timed beside the timed one
+   on the K1 and K7 bands (the work counters live only in the former), K1
+   on 42 rows and K7 on 48 rows beside their 50-row bands (the cost per
+   row as the last wave empties), and the triangle skip on and off on
+   meshes of 2 to 80 triangle blocks and on the Cornell box, bitwise equal,
+   beside the rule ``scene_kernel.TRI_SKIP_ENGAGE``.
 
 Every phase prints its wall seconds. It ends with a ``{"kernels": [...]}``
 line (one entry per instantiation and configuration) and then the result
@@ -328,6 +336,14 @@ def phase_main_path(out_dir: str, card: str) -> dict:
     return res
 
 
+def plan_of(plan) -> dict:
+    """A launch plan as the kernels line prints it: threads per pixel,
+    pixels per block, blocks, blocks resident per SM, and waves."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"split": plan.split, "pixels_per_block": plan.pixels_per_block, "blocks": plan.blocks,
+            "blocks_per_sm": plan.slots // n_sm, "waves": plan.waves}
+
+
 def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physical=False,
                    stats=False, frame=False) -> dict:
     """One of a path's launches (seed 0, depth 5, full width): the kernel's
@@ -342,7 +358,7 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
     n_pix = n_rows * 800
     nc = n_counts(nee, physical)
     counts = torch.empty((n_pix,) if nc == 1 else (nc, n_pix), dtype=torch.int32, device=dev)
-    render_block_sweep(scene, cam, row0, 0, 0, bounce_counts=counts, **kw)
+    render_block_sweep(scene, cam, row0, 0, 0, bounce_counts=counts, **{**kw, "with_stats": False})
     torch.cuda.synchronize()
     work = counts.to(torch.int64).reshape(nc, n_pix).sum(dim=1).tolist() + [0] * (5 - nc)
     samples = n_pix * n_samples
@@ -356,6 +372,7 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     kernel_ms = event_ms(lambda: render_block_sweep(scene, cam, row0, 0, 0, **kw), 3)
+    plan = plan_of(render_block_sweep.last_plan)
     k = render_block_sweep(scene, cam, row0, 0, 0, **kw)
     frame_ms = None
     if frame:
@@ -381,6 +398,7 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
     res = {
         "vs_plain": cmp,
         "kernel_ms": kernel_ms,
+        "launch_plan": plan,
         "frame_kernel_ms": frame_ms,
         "plain_ms": plain_ms,
         "bounces": work[0],
@@ -645,9 +663,10 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def work_counts(sc, cam, row0, seed, n_pix, dev, **kw) -> dict:
-    """One counting launch: the kernel's work counters summed over the band."""
+    """One counting launch: the kernel's work counters summed over the band
+    (the counting instantiations take no stats channel, which adds no work)."""
     counts = torch.zeros((scene_kernel.N_COUNTS, n_pix), dtype=torch.int32, device=dev)
-    render_block_scene(sc, cam, row0, 0, seed, work_counts=counts, **kw)
+    render_block_scene(sc, cam, row0, 0, seed, work_counts=counts, **{**kw, "with_stats": False})
     torch.cuda.synchronize()
     return dict(zip(scene_kernel.COUNT_NAMES, counts.to(torch.int64).sum(dim=1).tolist()))
 
@@ -672,6 +691,12 @@ def entered_share(c: dict, isect) -> dict:
                    tri_box_tests_per_fold=c["tri_box_tests"] / folds)
     return out
 
+
+# Skip options of the scene kernel: all off, one level of boxes, all on
+# (the triangle skip is otherwise engaged by block count).
+NO_SKIP = {"scan_skip": False, "tri_skip": False}
+ONE_LEVEL = {"two_level": False}
+SKIP_ON = {"scan_skip": True, "tri_skip": True}
 
 # Phase 10: (scene, accel, nee, physical, stats).
 SCENE_CONFIGS = [
@@ -705,7 +730,7 @@ def phase_scene_kernel_vs_plain(dev, name, accel, nee, physical, stats) -> dict:
     k2 = render_block_scene(sc, cam, row0, 0, seed, n_samples=16, **kw)
     torch.cuda.synchronize()
     check(bits_equal(k1, k2), f"{what}: two kernel launches differ")
-    for off in (dict(scan_skip=False, tri_skip=False), dict(two_level=False)):
+    for off in (NO_SKIP, ONE_LEVEL, SKIP_ON):
         ko = render_block_scene(sc, cam, row0, 0, seed, n_samples=16, **kw, **off)
         check(bits_equal(k1, ko), f"{what}: {off} changes the result")
     plain = render_block(sc, cam, row0, 0, seed, n_samples=16, **kw)
@@ -713,6 +738,7 @@ def phase_scene_kernel_vs_plain(dev, name, accel, nee, physical, stats) -> dict:
         **compare(k1, plain, 4, stats),
         "skip_off_bitwise_equal": True,
         "single_level_bitwise_equal": True,
+        "skip_on_bitwise_equal": True,
         "kernel_ms": event_ms(lambda: render_block_scene(sc, cam, row0, 0, seed, n_samples=16, **kw), 3),
         "plain_ms": event_ms(lambda: render_block(sc, cam, row0, 0, seed, n_samples=16, **kw), 1),
     }
@@ -929,6 +955,7 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
         isect, lights, n_shapes)
     ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, bytes_moved / PEAK_BYTES_PER_S * 1e3
     kernel_ms = event_ms(lambda: render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kw), 3)
+    plan = plan_of(render_block_scene.last_plan)
     timed = {json.dumps(o): float(np.median(event_ms(
         lambda: render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kw, **o), 3))) for o in skips}
     k = render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kw)[:plain_rows]
@@ -949,7 +976,8 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
     log(f"kernel vs plain ({what}, depth 5, seed 0):", json.dumps(cmp))
     check_vs_plain(cmp, what)
     res = {
-        "vs_plain": cmp, "kernel_ms": kernel_ms, "timed_options_ms": timed, "plain_ms": plain_ms,
+        "vs_plain": cmp, "kernel_ms": kernel_ms, "launch_plan": plan, "timed_options_ms": timed,
+        "plain_ms": plain_ms,
         "plain_shape": f"{plain_rows}x{w} px, {n_samples} spp (rows [0, {plain_rows}) of the launch)",
         "samples": samples, "bounces_per_sample": c["bounces"] / samples, "work_counts": c,
         "flops_lower_bound": flops, "bytes": bytes_moved, "bound_ms": max(ops_ms, bytes_ms),
@@ -960,9 +988,6 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
     log(f"measure ({label}):", json.dumps(res))
     return res
 
-
-NO_SKIP = {"scan_skip": False, "tri_skip": False}
-ONE_LEVEL = {"two_level": False}
 
 # Phase 13: configuration -> (K, lines of the TPU kernel it replaces, scene,
 # launch). K5 the scan, K6 the triangle fold, K7 triangle lights.
@@ -980,7 +1005,8 @@ SCENE_MEASURE = [
     ("sweep+tri+physical+stats", "flux_tpu/ops/pallas_kernel.py:611", "mesh_ico",
      dict(accel="sweep", row0=256, n_rows=128, n_samples=8, root=4, plain_rows=4, physical=True, stats=True)),
     ("sweep+tri+nee+trilight", "flux_tpu/ops/pallas_kernel.py:302", "demo5",
-     dict(accel="sweep", row0=250, n_rows=50, n_samples=1024, root=32, plain_rows=50, nee=True, skips=(NO_SKIP,))),
+     dict(accel="sweep", row0=250, n_rows=50, n_samples=1024, root=32, plain_rows=50, nee=True,
+          skips=(NO_SKIP, SKIP_ON))),
     ("sweep+tri+nee+trilight+physical", "flux_tpu/ops/pallas_kernel.py:302", "demo5",
      dict(accel="sweep", row0=250, n_rows=50, n_samples=64, root=8, plain_rows=4, nee=True, physical=True)),
     ("sweep+tri+nee+trilight+stats", "flux_tpu/ops/pallas_kernel.py:302", "demo5",
@@ -995,6 +1021,59 @@ def scene_by_name(name: str):
     if name == "mesh1280":
         return meshgen.mesh_scene(*meshgen.icosphere(3), name="mesh1280")
     return stock(name)
+
+
+def median_ms(fn) -> float:
+    return float(np.median(event_ms(fn, 3)))
+
+
+def phase_design(dev) -> dict:
+    """Phase 14: what the kernels' design rests on, measured on the main
+    paths' launches. The counting instantiation timed beside the timed one
+    (the counters' cost); bands of fewer rows (the cost per row as the last
+    wave empties); the triangle skip on and off by the triangle table's
+    block count, on meshes of 2 to 80 blocks in mesh_scene at 16 spp and on
+    the Cornell box with NEE at 1024 spp (the rule TRI_SKIP_ENGAGE)."""
+    res = {}
+    _, d2, cam2 = scene_on(dev, "demo2")
+    kw1 = dict(img_w=800, img_h=600, n_samples=16384, root=128, max_depth=5)
+    k1 = lambda n_rows, **o: render_block_sweep(d2, cam2, 300, 0, 0, n_rows=n_rows, **kw1, **o)
+    counts = torch.zeros(50 * 800, dtype=torch.int32, device=dev)
+    sc5, cam5, isect5, lights5, w5, h5 = scene_setup(dev, stock("demo5"), "sweep", True)
+    kw7 = dict(isect=isect5, img_w=w5, img_h=h5, n_samples=1024, root=32, max_depth=5, lights=lights5)
+    k7 = lambda n_rows, **o: render_block_scene(sc5, cam5, 250, 0, 0, n_rows=n_rows, **kw7, **o)
+    counts7 = torch.zeros((scene_kernel.N_COUNTS, 50 * w5), dtype=torch.int32, device=dev)
+    res["K1"] = {"ms_50_rows": median_ms(lambda: k1(50)), "ms_42_rows": median_ms(lambda: k1(42)),
+                 "ms_counting_launch": median_ms(lambda: k1(50, bounce_counts=counts))}
+    res["K7"] = {"ms_50_rows": median_ms(lambda: k7(50)), "ms_48_rows": median_ms(lambda: k7(48)),
+                 "ms_counting_launch": median_ms(lambda: k7(50, work_counts=counts7)),
+                 "ms_skip_on": median_ms(lambda: k7(50, tri_skip=True)),
+                 "ms_skip_off": median_ms(lambda: k7(50, tri_skip=False))}
+    for k in ("K1", "K7"):
+        r = res[k]
+        short = r.get("ms_42_rows", r.get("ms_48_rows"))
+        r["per_row_ratio_short_to_50"] = (short / (42 if k == "K1" else 48)) / (r["ms_50_rows"] / 50)
+        r["counting_over_timed"] = r["ms_counting_launch"] / r["ms_50_rows"]
+    v2, f2 = meshgen.icosphere(2)
+    meshes = {"icosphere(0)": meshgen.icosphere(0), "icosphere(1)": meshgen.icosphere(1),
+              "icosphere(2)[:128]": (v2, f2[:128]), "icosphere(2)": (v2, f2), "icosphere(3)": meshgen.icosphere(3)}
+    skip = {}
+    for name, (v, f) in meshes.items():
+        sc, cam, isect, _, w, h = scene_setup(dev, meshgen.mesh_scene(v, f), "sweep", False)
+        kw = dict(isect=isect, img_w=w, img_h=h, n_rows=50, n_samples=16, root=4, max_depth=5)
+        on = render_block_scene(sc, cam, 300, 0, 0, tri_skip=True, **kw)
+        off = render_block_scene(sc, cam, 300, 0, 0, tri_skip=False, **kw)
+        check(bits_equal(on, off), f"{name}: the triangle skip changes the result")
+        skip[name] = {"blocks": isect.tri_layout.n_blocks,
+                      "ms_on": median_ms(lambda: render_block_scene(sc, cam, 300, 0, 0, tri_skip=True, **kw)),
+                      "ms_off": median_ms(lambda: render_block_scene(sc, cam, 300, 0, 0, tri_skip=False, **kw)),
+                      "engaged": scene_kernel.tri_skip_engaged(isect.tri_layout.n_blocks)}
+    skip["demo5 (NEE, 1024 spp)"] = {"blocks": isect5.tri_layout.n_blocks, "ms_on": res["K7"]["ms_skip_on"],
+                                      "ms_off": res["K7"]["ms_skip_off"],
+                                      "engaged": scene_kernel.tri_skip_engaged(isect5.tri_layout.n_blocks)}
+    res["tri_skip"] = skip
+    log("design (K1 demo2 band at 16384 spp, K7 demo5 band at 1024 spp; triangle skip by blocks):", json.dumps(res))
+    return res
 
 
 def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
@@ -1012,6 +1091,7 @@ def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
         "bound_by": meas["bound_by"],
         "library_ms": None,
         "shape": meas["shape"],
+        "launch_plan": meas["launch_plan"],
         "bounces_per_sample": meas["bounces_per_sample"],
         "work_counts": meas["work_counts"],
     }
@@ -1080,6 +1160,8 @@ def main() -> int:
             if cfg == "scan":
                 entry["sphere_field_16384_band"] = big
             kernels.append(entry)
+    with phase_timer("14 design checks"):
+        phase_design(dev)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -13,11 +13,15 @@
 // A geometry policy G has
 //   typename G::Lights            the light set's accessors (below);
 //   G::N_COUNTS                   work counters per pixel with NEE or PHYSICAL;
+//   void stage(tid, n_threads)    copies what the block reads with a per-lane
+//                                 index into shared memory (before a barrier);
 //   bool nearest(o, d, a, inv_a, prev, Hit*, cnt)   the nearest hit;
 //   bool occluded(o, d, a, inv_a, t_max, exclude, origin, cnt)   any hit in
 //                                 (T_MIN, t_max) but by `exclude`;
 //   int light_of(shape)           the light index of a shape, -1 if none;
 //   Lights lights().
+// `cnt` is a Counters<COUNT, N>: the work counters exist only in the
+// counting instantiations (COUNT), so a timed launch carries none.
 // A light policy L has n(), cdf(k), pick(k), center(k) (x, y, z, radius),
 // emit(k), shape_idx(k) and, where L::TRI, has_tris(), is_tri(k), tri_v0(k),
 // tri_e1(k), tri_e2(k), tri_n(k) (x, y, z, area).
@@ -38,9 +42,13 @@
 #define FLUX_MAX_SPHERES 64
 #define FLUX_MAX_PLANES 16
 #define FLUX_MAX_SHAPES (FLUX_MAX_SPHERES + FLUX_MAX_PLANES)
-#define FLUX_PIXELS_PER_BLOCK 32
-#define FLUX_SAMPLE_SPLIT 8
-// Work counters per pixel (see trace_sample): bounces, light samples,
+// A block is FLUX_BLOCK_THREADS threads: (256 / split) pixels × split
+// threads per pixel, split one of 8, 16, 32, chosen per launch by the host
+// (ops/sweep_kernel.py::launch_plan).
+#define FLUX_BLOCK_THREADS 256
+// The sampler rows are sized for max_depth; the wrappers refuse a deeper one.
+#define FLUX_MAX_DEPTH 32
+// Work counters per pixel (see bounce): bounces, light samples,
 // unoccluded shadow rays, MIS reverse densities, glossy lobe evaluations.
 // A geometry policy may count more behind these.
 #define FLUX_N_COUNTS 5
@@ -164,21 +172,56 @@ __device__ __forceinline__ uint32_t permute_pow2(uint32_t i, uint32_t l, uint32_
   return (i + p) & w;
 }
 
-// MJ (correlated = false) or CMJ (correlated = true) sample s of root².
-__device__ __forceinline__ void multi_jitter(uint32_t s, uint32_t root, uint32_t pattern,
-                                             bool correlated, float* x, float* y) {
-  const uint32_t i = s % root;
-  const uint32_t j = s / root;
+// A pixel's sampler row: every hash of its sample streams that does not
+// depend on the sample index, computed once per pixel (render_pixels keeps
+// the rows in shared memory). A pattern takes four words, its id hashed
+// with SALT_PX, SALT_PY, SALT_JX and SALT_JY (patterns.py): CMJ permutes by
+// the first two, uncorrelated MJ hashes the cell index into them, and both
+// jitter by the last two. Words [0, 4) are the AA pattern's, [4, 8) the
+// lens pattern's; then for each depth 1..max_depth the bounce pattern's
+// four and, with NEE, the light-sample pattern's four and the light pick's
+// stream id. The row's length is odd, so that the lanes of a warp, each on
+// its own pixel's row, read distinct banks.
+#define ROW_AA 0
+#define ROW_LENS 4
+#define ROW_DEPTH0 8
+#define ROW_NEE 4  // within a depth's words
+#define ROW_PICK 8
+
+__host__ __device__ constexpr int row_per_depth(bool nee) { return nee ? 9 : 4; }
+
+__host__ __device__ inline int row_words(bool nee, int max_depth) {
+  return (ROW_DEPTH0 + row_per_depth(nee) * max_depth) | 1;
+}
+
+__device__ __forceinline__ uint32_t pattern_salt(int k) {
+  return k == 0 ? SALT_PX : k == 1 ? SALT_PY : k == 2 ? SALT_JX : SALT_JY;
+}
+
+// Word w of the row of the pixel whose stream id is pixel_base.
+template <bool NEE>
+__device__ __forceinline__ uint32_t sampler_word(uint32_t pixel_base, int w) {
+  if (w < ROW_DEPTH0) {
+    return hash2(hash2(pixel_base, w < ROW_LENS ? SALT_AA : SALT_LENS), pattern_salt(w & 3));
+  }
+  constexpr int per = row_per_depth(NEE);
+  const uint32_t depth = (uint32_t)((w - ROW_DEPTH0) / per + 1);
+  const int k = (w - ROW_DEPTH0) % per;
+  if (k == ROW_PICK) return hash3(pixel_base, SALT_NEEPICK, depth);
+  return hash2(hash3(pixel_base, k < ROW_NEE ? SALT_BOUNCE : SALT_NEE, depth), pattern_salt(k & 3));
+}
+
+// MJ (correlated = false) or CMJ (correlated = true) sample s of root²,
+// in cell (i, j), from its pattern's four row words w.
+__device__ __forceinline__ void multi_jitter(uint32_t s, uint32_t i, uint32_t j, uint32_t root,
+                                             const uint32_t* w, bool correlated, float* x, float* y) {
   const float rf = (float)(int)root;
   float fine_x, fine_y;
   if ((root & (root - 1u)) == 0u) {
-    uint32_t px, py;
-    if (correlated) {
-      px = hash2(pattern, SALT_PX);
-      py = hash2(pattern, SALT_PY);
-    } else {
-      px = hash3(pattern, SALT_PX, i);
-      py = hash3(pattern, SALT_PY, j);
+    uint32_t px = w[0], py = w[1];
+    if (!correlated) {
+      px = hc_step(px, i);  // hash3(pattern, SALT_PX, i)
+      py = hc_step(py, j);
     }
     fine_x = (float)(int)permute_pow2(j, root, px);
     fine_y = (float)(int)permute_pow2(i, root, py);
@@ -186,30 +229,28 @@ __device__ __forceinline__ void multi_jitter(uint32_t s, uint32_t root, uint32_t
     fine_x = (float)(int)j;
     fine_y = (float)(int)((root - 1u) - i);
   }
-  const float jx = randfloat(s, hash2(pattern, SALT_JX));
-  const float jy = randfloat(s, hash2(pattern, SALT_JY));
+  const float jx = randfloat(s, w[2]);
+  const float jy = randfloat(s, w[3]);
   *x = ((float)(int)i + (fine_x + jx) / rf) / rf;
   *y = ((float)(int)j + (fine_y + jy) / rf) / rf;
 }
 
-__device__ __forceinline__ void jittered(uint32_t s, uint32_t root, uint32_t pattern,
-                                         float* x, float* y) {
+__device__ __forceinline__ void jittered(uint32_t s, uint32_t i, uint32_t j, uint32_t root,
+                                         const uint32_t* w, float* x, float* y) {
   const float rf = (float)(int)root;
-  const float i = (float)(int)(s % root);
-  const float j = (float)(int)(s / root);
-  const float jx = randfloat(s, hash2(pattern, SALT_JX));
-  const float jy = randfloat(s, hash2(pattern, SALT_JY));
-  *x = (i + jx) / rf;
-  *y = (j + jy) / rf;
+  const float jx = randfloat(s, w[2]);
+  const float jy = randfloat(s, w[3]);
+  *x = ((float)(int)i + jx) / rf;
+  *y = ((float)(int)j + jy) / rf;
 }
 
 // patterns.bounce_point: MJ at the first bounce, jittered beyond.
-__device__ __forceinline__ void bounce_point(uint32_t s, uint32_t root, uint32_t pattern, int depth,
-                                             float* x, float* y) {
+__device__ __forceinline__ void bounce_point(uint32_t s, uint32_t i, uint32_t j, uint32_t root,
+                                             const uint32_t* w, int depth, float* x, float* y) {
   if (depth <= 1) {
-    multi_jitter(s, root, pattern, false, x, y);
+    multi_jitter(s, i, j, root, w, false, x, y);
   } else {
-    jittered(s, root, pattern, x, y);
+    jittered(s, i, j, root, w, x, y);
   }
 }
 
@@ -547,217 +588,310 @@ __device__ __forceinline__ void glossy_lobe(V3 mirror, V3 nrm, float e, V3 wd, f
   *pdf = (e + 1.0f) * HALF_INV_PI * *phong * (1.0f + *dup);
 }
 
-// ---- one sample's path ---------------------------------------------------
+// ---- per-lane rows in shared memory ---------------------------------------
 
-// Radiance of sample s of the pixel (row, col). Adds to the work counters
-// cnt: [0] bounces and, with NEE or PHYSICAL, [1] light samples, [2]
-// unoccluded shadow rays (each swept every other shape), [3] MIS reverse
-// densities, [4] glossy lobe evaluations. The geometry policy `g` finds the
-// hits and may count its own work behind these.
-template <bool NEE, bool PHYSICAL, class G>
-__device__ __forceinline__ V3 trace_sample(const G& g, uint32_t s, uint32_t pixel_base, int row,
-                                           int col, int img_w, int img_h, uint32_t root,
-                                           int max_depth, uint32_t* cnt) {
+// The __constant__ scene's per-shape rows that a hit reads with a per-lane
+// index (the hit's shape), staged into shared memory once per block: the
+// constant cache serves one address per pass, so a warp whose lanes hit
+// different shapes would wait there once per distinct shape. Numbered as in
+// c_scene: spheres (center, invert / radius), then planes (normal, 0).
+struct ShapeRows {
+  float4 geo[FLUX_MAX_SHAPES];
+  float4 mat[FLUX_MAX_SHAPES];  // albedo (color × param), exponent
+  int kind[FLUX_MAX_SHAPES];
+};
+
+__device__ __forceinline__ ShapeRows* shape_rows() {
+  __shared__ ShapeRows rows;
+  return &rows;
+}
+
+__device__ __forceinline__ void stage_shape_rows(ShapeRows* r, int tid, int n_threads) {
+  const int ns = c_scene.n_spheres;
+  const int n = ns + c_scene.n_planes;
+  for (int k = tid; k < n; k += n_threads) {
+    if (k < ns) {
+      r->geo[k] = make_float4(c_scene.sph[k][0], c_scene.sph[k][1], c_scene.sph[k][2],
+                              c_scene.sph_invert[k] / c_scene.sph[k][3]);
+    } else {
+      const int j = k - ns;
+      r->geo[k] = make_float4(c_scene.pl_normal[j][0], c_scene.pl_normal[j][1], c_scene.pl_normal[j][2], 0.0f);
+    }
+    r->mat[k] = make_float4(c_scene.alb[k][0], c_scene.alb[k][1], c_scene.alb[k][2], c_scene.exponent[k]);
+    r->kind[k] = c_scene.kind[k];
+  }
+}
+
+// The normal and material of a hit on shape k of c_scene at point p: a
+// sphere's normal (p - c)·invert/r, a plane's as authored.
+__device__ __forceinline__ void hit_from_rows(const ShapeRows* r, int k, bool sphere, V3 p, Hit* h) {
+  const float4 g = r->geo[k];
+  h->n = sphere ? V3{(p.x - g.x) * g.w, (p.y - g.y) * g.w, (p.z - g.z) * g.w} : V3{g.x, g.y, g.z};
+  const float4 m = r->mat[k];
+  h->alb = V3{m.x, m.y, m.z};
+  h->exponent = m.w;
+  h->kind = r->kind[k];
+}
+
+// ---- work counters --------------------------------------------------------
+
+// Per-thread work counters: N of them with COUNT, none at all without.
+template <bool COUNT, int N>
+struct Counters {
+  static constexpr bool ON = true;
+  uint32_t c[N];
+  __device__ __forceinline__ Counters() {
+    for (int k = 0; k < N; ++k) c[k] = 0u;
+  }
+  __device__ __forceinline__ void add(int k, uint32_t v) { c[k] += v; }
+};
+
+template <int N>
+struct Counters<false, N> {
+  static constexpr bool ON = false;
+  __device__ __forceinline__ void add(int, uint32_t) {}
+};
+
+// ---- one sample's path -----------------------------------------------------
+
+// The state of one sample's path between bounces.
+struct Path {
+  V3 o, d;  // the ray
+  V3 tput;  // throughput
+  V3 rad;  // radiance gathered so far
+  uint32_t s;  // the sample index
+  int depth;  // the next bounce, 1..max_depth
+  int prev;  // shape the ray originates on
+  bool suppress;  // NEE: the last vertex sampled a light (hard split)
+  float prev_pdf;  // NEE + PHYSICAL: density that sampled this ray
+  V3 prev_n;  // NEE + PHYSICAL: the last vertex's normal
+};
+
+// Sample s of the pixel (row y, col): its thin-lens primary ray
+// (camera.primary_rays), from the CMJ anti-aliasing and lens points.
+__device__ __forceinline__ void start_path(Path& ph, const uint32_t* row, uint32_t s, uint32_t root, int y,
+                                           int col, int img_w, int img_h) {
+  const uint32_t i = s % root, j = s / root;
   float ax, ay, ux, uy, lx, ly;
-  multi_jitter(s, root, hash2(pixel_base, SALT_AA), true, &ax, &ay);
-  multi_jitter(s, root, hash2(pixel_base, SALT_LENS), true, &ux, &uy);
+  multi_jitter(s, i, j, root, row + ROW_AA, true, &ax, &ay);
+  multi_jitter(s, i, j, root, row + ROW_LENS, true, &ux, &uy);
   to_poisson_disc(ux, uy, &lx, &ly);
 
-  // Thin-lens primary ray (camera.primary_rays).
   const float half_w = (float)img_w * 0.5f;
   const float half_h = (float)img_h * 0.5f;
   const float adj = c_scene.adjusted_pixel_size;
   const float px = adj * (((float)col - half_w) + ax);
-  const float py = adj * ((((float)img_h - (float)row) - half_h) + ay);
+  const float py = adj * ((((float)img_h - (float)y) - half_h) + ay);
   const float lpx = lx * c_scene.lens_radius;
   const float lpy = ly * c_scene.lens_radius;
   const float dxv = px * c_scene.vp_factor - lpx;
   const float dyv = py * c_scene.vp_factor - lpy;
   const V3 fw = V3{c_scene.focal_distance * c_scene.w[0], c_scene.focal_distance * c_scene.w[1],
                    c_scene.focal_distance * c_scene.w[2]};
-  V3 d = normalize3(V3{dxv * c_scene.u[0] + dyv * c_scene.v[0] - fw.x,
+  ph.d = normalize3(V3{dxv * c_scene.u[0] + dyv * c_scene.v[0] - fw.x,
                        dxv * c_scene.u[1] + dyv * c_scene.v[1] - fw.y,
                        dxv * c_scene.u[2] + dyv * c_scene.v[2] - fw.z});
-  V3 o = V3{c_scene.eye[0] + lpx * c_scene.u[0] + lpy * c_scene.v[0],
+  ph.o = V3{c_scene.eye[0] + lpx * c_scene.u[0] + lpy * c_scene.v[0],
             c_scene.eye[1] + lpx * c_scene.u[1] + lpy * c_scene.v[1],
             c_scene.eye[2] + lpx * c_scene.u[2] + lpy * c_scene.v[2]};
+  ph.tput = V3{1.0f, 1.0f, 1.0f};
+  ph.rad = V3{0.0f, 0.0f, 0.0f};
+  ph.s = s;
+  ph.depth = 1;
+  ph.prev = -1;
+  ph.suppress = false;
+  ph.prev_pdf = 0.0f;
+  ph.prev_n = V3{0.0f, 0.0f, 0.0f};
+}
 
-  V3 tput = V3{1.0f, 1.0f, 1.0f};
-  V3 rad = V3{0.0f, 0.0f, 0.0f};
-  int prev = -1;  // shape the ray originates on
-  bool suppress = false;  // NEE: the last vertex sampled a light (hard split)
-  float prev_pdf = 0.0f;  // NEE + PHYSICAL: density that sampled this ray
-  V3 prev_n = V3{0.0f, 0.0f, 0.0f};  // NEE + PHYSICAL: the last vertex's normal
-
-  for (int depth = 1; depth <= max_depth; ++depth) {
-    cnt[0] += 1u;
-    float a = 1.0f, inv_a = 1.0f;
-    if (!c_scene.unit_d) {
-      a = d.x * d.x + d.y * d.y + d.z * d.z;
-      inv_a = 1.0f / a;
-    }
-    Hit h;
-    if (!g.nearest(o, d, a, inv_a, prev, &h, cnt)) {  // miss: background (scene.rs:168)
-      rad.x = rad.x + tput.x * c_scene.bg[0];
-      rad.y = rad.y + tput.y * c_scene.bg[1];
-      rad.z = rad.z + tput.z * c_scene.bg[2];
-      break;
-    }
-    const V3 p = h.p;
-    const V3 n = h.n;
-    const int best = h.shape;
-    const int kind = h.kind;
-    const V3 alb = h.alb;
-    if (kind == KIND_EMISSIVE) {  // emit toward rays it faces, then stop
-      const bool facing = dot3(n, d) < 0.0f;
-      if constexpr (NEE && PHYSICAL) {
-        if (facing) {
-          // MIS: a BSDF hit of an NEE light weighs pdf_b / (pdf_b + pdf_nee).
-          float emit_w = 1.0f;
-          const int li = g.light_of(best);
-          if (li >= 0 && prev_pdf > 0.0f) {
-            cnt[3] += 1u;
-            const float pdf_nee_prev = nee_pdf_toward(g.lights(), o, li, d, h.t, prev_n);
-            emit_w = prev_pdf / fmaxf(prev_pdf + pdf_nee_prev, EPS_20);
-          }
-          rad.x = rad.x + tput.x * alb.x * emit_w;
-          rad.y = rad.y + tput.y * alb.y * emit_w;
-          rad.z = rad.z + tput.z * alb.z * emit_w;
-        }
-      } else {
-        bool emit = facing;
-        if constexpr (NEE) {  // hard split: the last vertex counted this light
-          emit = emit && !(suppress && g.light_of(best) >= 0);
-        }
-        if (emit) {
-          rad.x = rad.x + tput.x * alb.x;
-          rad.y = rad.y + tput.y * alb.y;
-          rad.z = rad.z + tput.z * alb.z;
-        }
-      }
-      break;
-    }
-
-    const float k2 = 2.0f * dot3(n, d);
-    const V3 r = V3{d.x - k2 * n.x, d.y - k2 * n.y, d.z - k2 * n.z};
-    const bool glossy = kind == KIND_GLOSSY;
-    if constexpr (NEE) {
-      // Light sample at matte vertices (and glossy ones under PHYSICAL),
-      // below the final depth, whose emission the BSDF walk could still
-      // have collected at the next vertex (ops/shade.py:186-298).
-      const bool diffuse = kind == KIND_MATTE;
-      if (depth < max_depth && (diffuse || (PHYSICAL && glossy))) {
-        cnt[1] += 1u;
-        float nux, nuy;
-        bounce_point(s, root, hash3(pixel_base, SALT_NEE, (uint32_t)depth), depth, &nux, &nuy);
-        const float upick = randfloat(s, hash3(pixel_base, SALT_NEEPICK, (uint32_t)depth));
-        const LightSample ls = sample_light(g.lights(), p, nux, nuy, upick, n);
-        const float cos_s = dot3(n, ls.d);
-        float a_sh = 1.0f, inv_a_sh = 1.0f;
-        if (!c_scene.unit_d) {
-          a_sh = dot3(ls.d, ls.d);
-          inv_a_sh = 1.0f / a_sh;
-        }
-        float t_l;  // the light's own ray-t, by the sweep's sphere rule
-        bool l_valid = sphere_t(p, ls.d, a_sh, inv_a_sh, ls.center.x, ls.center.y,
-                                ls.center.z, ls.radius, false, &t_l);
-        float t_sh = t_l;  // the shadow ray's far end
-        if constexpr (G::Lights::TRI) {
-          if (ls.tri) {  // the sampled point's own t, shrunk on triangle lanes only
-            t_l = ls.tri_t;
-            l_valid = t_l > T_MIN;
-            t_sh = t_l * TRI_SHADOW_SHRINK;
-          }
-        }
-        if (l_valid && cos_s > 0.0f && !g.occluded(p, ls.d, a_sh, inv_a_sh, t_sh, ls.sidx, best, cnt)) {
-          cnt[2] += 1u;
-          float fac;
-          if constexpr (PHYSICAL) {
-            // True Lambertian / normalized Phong f·cos, balance-weighted
-            // against the vertex's own BSDF density.
-            float pdf_b, f_fac;
-            if (glossy) {
-              cnt[4] += 1u;
-              float phong_l, dup_l;
-              glossy_lobe(r, n, h.exponent, ls.d, &phong_l, &pdf_b, &dup_l);
-              f_fac = (h.exponent + 2.0f) * HALF_INV_PI * phong_l;
-            } else {
-              pdf_b = cos_s * INV_PI;
-              f_fac = INV_PI;
-            }
-            const float w_nee = ls.pdf / fmaxf(ls.pdf + pdf_b, EPS_20);
-            fac = f_fac * cos_s * w_nee;
-          } else {
-            fac = HALF_INV_PI;  // the reference's cosine-free matte: Ω/(2π)
-          }
-          rad.x = rad.x + tput.x * alb.x * ls.weight.x * fac;
-          rad.y = rad.y + tput.y * alb.y * ls.weight.y * fac;
-          rad.z = rad.z + tput.z * alb.z * ls.weight.z * fac;
-        }
-      }
-      suppress = diffuse;
-    }
-
-    // Scatter (ops/brdf.sample_directions).
-    V3 wi;
-    if (kind == KIND_REFLECTIVE) {
-      wi = r;
-    } else {
-      float bx, by;
-      bounce_point(s, root, hash3(pixel_base, SALT_BOUNCE, (uint32_t)depth), depth, &bx, &by);
-      float hx, hy, hz;
-      to_unit_hemi(bx, by, glossy ? h.exponent : (PHYSICAL ? 1.0f : 0.0f), &hx, &hy, &hz);
-      const V3 w = glossy ? r : n;
-      const V3 eps = glossy ? EG_V3 : EM_V3;
-      const V3 c = normalize3(cross3(eps, w));
-      const V3 c2 = cross3(c, w);
-      const V3 f1 = glossy ? c : c2;
-      const V3 f2 = glossy ? c2 : c;
-      const V3 tan = V3{hx * f1.x + hy * f2.x, hx * f1.y + hy * f2.y, hx * f1.z + hy * f2.z};
-      const V3 axial = V3{w.x * hz, w.y * hz, w.z * hz};
-      const bool below =
-          glossy && dot3(n, V3{tan.x + axial.x, tan.y + axial.y, tan.z + axial.z}) < 0.0f;
-      const float sign = below ? -1.0f : 1.0f;
-      wi = V3{tan.x * sign + axial.x, tan.y * sign + axial.y, tan.z * sign + axial.z};
-    }
-    if constexpr (PHYSICAL) {
-      // Glossy walk weight f·cos/pdf = (e+2)/(e+1)·cos/(1+dup); matte and
-      // mirror weights stay 1. With NEE, the density of wi for MIS.
-      const float cos_i = fmaxf(dot3(n, wi), 0.0f);
-      float tput_fac = 1.0f, pdf_gi = 0.0f;
-      if (glossy) {
-        cnt[4] += 1u;
-        const float e = h.exponent;
-        float phong_i, dup_i;
-        glossy_lobe(r, n, e, wi, &phong_i, &pdf_gi, &dup_i);
-        tput_fac = (e + 2.0f) / (e + 1.0f) * cos_i / (1.0f + dup_i);
-      }
-      tput = V3{tput.x * alb.x * tput_fac, tput.y * alb.y * tput_fac, tput.z * alb.z * tput_fac};
-      if constexpr (NEE) {
-        prev_pdf = glossy ? pdf_gi : (kind == KIND_MATTE ? cos_i * INV_PI : 0.0f);
-        prev_n = n;
-      }
-    } else {
-      tput = V3{tput.x * alb.x, tput.y * alb.y, tput.z * alb.z};
-    }
-    o = p;
-    d = wi;
-    prev = best;
+// Bounce ph.depth of the path: its hit, emission, light sample and scatter.
+// Returns whether the path has ended (a miss, an emitter, or the last
+// depth). Adds to the work counters cnt: [0] bounces and, with NEE or
+// PHYSICAL, [1] light samples, [2] unoccluded shadow rays (each swept every
+// other shape), [3] MIS reverse densities, [4] glossy lobe evaluations. The
+// geometry policy `g` finds the hits and may count its own work behind these.
+template <bool NEE, bool PHYSICAL, class G, class C>
+__device__ __forceinline__ bool bounce(const G& g, Path& ph, const uint32_t* row, uint32_t root, int max_depth,
+                                       C& cnt) {
+  const int depth = ph.depth;
+  const V3 d = ph.d;
+  cnt.add(0, 1u);
+  float a = 1.0f, inv_a = 1.0f;
+  if (!c_scene.unit_d) {
+    a = d.x * d.x + d.y * d.y + d.z * d.z;
+    inv_a = 1.0f / a;
   }
-  return rad;
+  Hit h;
+  if (!g.nearest(ph.o, d, a, inv_a, ph.prev, &h, cnt)) {  // miss: background (scene.rs:168)
+    ph.rad.x = ph.rad.x + ph.tput.x * c_scene.bg[0];
+    ph.rad.y = ph.rad.y + ph.tput.y * c_scene.bg[1];
+    ph.rad.z = ph.rad.z + ph.tput.z * c_scene.bg[2];
+    return true;
+  }
+  const V3 p = h.p;
+  const V3 n = h.n;
+  const int best = h.shape;
+  const int kind = h.kind;
+  const V3 alb = h.alb;
+  const V3 tput = ph.tput;
+  if (kind == KIND_EMISSIVE) {  // emit toward rays it faces, then stop
+    const bool facing = dot3(n, d) < 0.0f;
+    if constexpr (NEE && PHYSICAL) {
+      if (facing) {
+        // MIS: a BSDF hit of an NEE light weighs pdf_b / (pdf_b + pdf_nee).
+        float emit_w = 1.0f;
+        const int li = g.light_of(best);
+        if (li >= 0 && ph.prev_pdf > 0.0f) {
+          cnt.add(3, 1u);
+          const float pdf_nee_prev = nee_pdf_toward(g.lights(), ph.o, li, d, h.t, ph.prev_n);
+          emit_w = ph.prev_pdf / fmaxf(ph.prev_pdf + pdf_nee_prev, EPS_20);
+        }
+        ph.rad.x = ph.rad.x + tput.x * alb.x * emit_w;
+        ph.rad.y = ph.rad.y + tput.y * alb.y * emit_w;
+        ph.rad.z = ph.rad.z + tput.z * alb.z * emit_w;
+      }
+    } else {
+      bool emit = facing;
+      if constexpr (NEE) {  // hard split: the last vertex counted this light
+        emit = emit && !(ph.suppress && g.light_of(best) >= 0);
+      }
+      if (emit) {
+        ph.rad.x = ph.rad.x + tput.x * alb.x;
+        ph.rad.y = ph.rad.y + tput.y * alb.y;
+        ph.rad.z = ph.rad.z + tput.z * alb.z;
+      }
+    }
+    return true;
+  }
+
+  const uint32_t s = ph.s;
+  const uint32_t i = s % root, j = s / root;
+  const uint32_t* w = row + ROW_DEPTH0 + (depth - 1) * row_per_depth(NEE);  // this depth's words
+  const float k2 = 2.0f * dot3(n, d);
+  const V3 r = V3{d.x - k2 * n.x, d.y - k2 * n.y, d.z - k2 * n.z};
+  const bool glossy = kind == KIND_GLOSSY;
+  if constexpr (NEE) {
+    // Light sample at matte vertices (and glossy ones under PHYSICAL),
+    // below the final depth, whose emission the BSDF walk could still
+    // have collected at the next vertex (ops/shade.py:186-298).
+    const bool diffuse = kind == KIND_MATTE;
+    if (depth < max_depth && (diffuse || (PHYSICAL && glossy))) {
+      cnt.add(1, 1u);
+      float nux, nuy;
+      bounce_point(s, i, j, root, w + ROW_NEE, depth, &nux, &nuy);
+      const float upick = randfloat(s, w[ROW_PICK]);
+      const LightSample ls = sample_light(g.lights(), p, nux, nuy, upick, n);
+      const float cos_s = dot3(n, ls.d);
+      float a_sh = 1.0f, inv_a_sh = 1.0f;
+      if (!c_scene.unit_d) {
+        a_sh = dot3(ls.d, ls.d);
+        inv_a_sh = 1.0f / a_sh;
+      }
+      float t_l;  // the light's own ray-t, by the sweep's sphere rule
+      bool l_valid = sphere_t(p, ls.d, a_sh, inv_a_sh, ls.center.x, ls.center.y,
+                              ls.center.z, ls.radius, false, &t_l);
+      float t_sh = t_l;  // the shadow ray's far end
+      if constexpr (G::Lights::TRI) {
+        if (ls.tri) {  // the sampled point's own t, shrunk on triangle lanes only
+          t_l = ls.tri_t;
+          l_valid = t_l > T_MIN;
+          t_sh = t_l * TRI_SHADOW_SHRINK;
+        }
+      }
+      if (l_valid && cos_s > 0.0f && !g.occluded(p, ls.d, a_sh, inv_a_sh, t_sh, ls.sidx, best, cnt)) {
+        cnt.add(2, 1u);
+        float fac;
+        if constexpr (PHYSICAL) {
+          // True Lambertian / normalized Phong f·cos, balance-weighted
+          // against the vertex's own BSDF density.
+          float pdf_b, f_fac;
+          if (glossy) {
+            cnt.add(4, 1u);
+            float phong_l, dup_l;
+            glossy_lobe(r, n, h.exponent, ls.d, &phong_l, &pdf_b, &dup_l);
+            f_fac = (h.exponent + 2.0f) * HALF_INV_PI * phong_l;
+          } else {
+            pdf_b = cos_s * INV_PI;
+            f_fac = INV_PI;
+          }
+          const float w_nee = ls.pdf / fmaxf(ls.pdf + pdf_b, EPS_20);
+          fac = f_fac * cos_s * w_nee;
+        } else {
+          fac = HALF_INV_PI;  // the reference's cosine-free matte: Ω/(2π)
+        }
+        ph.rad.x = ph.rad.x + tput.x * alb.x * ls.weight.x * fac;
+        ph.rad.y = ph.rad.y + tput.y * alb.y * ls.weight.y * fac;
+        ph.rad.z = ph.rad.z + tput.z * alb.z * ls.weight.z * fac;
+      }
+    }
+    ph.suppress = diffuse;
+  }
+
+  // Scatter (ops/brdf.sample_directions).
+  V3 wi;
+  if (kind == KIND_REFLECTIVE) {
+    wi = r;
+  } else {
+    float bx, by;
+    bounce_point(s, i, j, root, w, depth, &bx, &by);
+    float hx, hy, hz;
+    to_unit_hemi(bx, by, glossy ? h.exponent : (PHYSICAL ? 1.0f : 0.0f), &hx, &hy, &hz);
+    const V3 wv = glossy ? r : n;
+    const V3 eps = glossy ? EG_V3 : EM_V3;
+    const V3 c = normalize3(cross3(eps, wv));
+    const V3 c2 = cross3(c, wv);
+    const V3 f1 = glossy ? c : c2;
+    const V3 f2 = glossy ? c2 : c;
+    const V3 tan = V3{hx * f1.x + hy * f2.x, hx * f1.y + hy * f2.y, hx * f1.z + hy * f2.z};
+    const V3 axial = V3{wv.x * hz, wv.y * hz, wv.z * hz};
+    const bool below =
+        glossy && dot3(n, V3{tan.x + axial.x, tan.y + axial.y, tan.z + axial.z}) < 0.0f;
+    const float sign = below ? -1.0f : 1.0f;
+    wi = V3{tan.x * sign + axial.x, tan.y * sign + axial.y, tan.z * sign + axial.z};
+  }
+  if constexpr (PHYSICAL) {
+    // Glossy walk weight f·cos/pdf = (e+2)/(e+1)·cos/(1+dup); matte and
+    // mirror weights stay 1. With NEE, the density of wi for MIS.
+    const float cos_i = fmaxf(dot3(n, wi), 0.0f);
+    float tput_fac = 1.0f, pdf_gi = 0.0f;
+    if (glossy) {
+      cnt.add(4, 1u);
+      const float e = h.exponent;
+      float phong_i, dup_i;
+      glossy_lobe(r, n, e, wi, &phong_i, &pdf_gi, &dup_i);
+      tput_fac = (e + 2.0f) / (e + 1.0f) * cos_i / (1.0f + dup_i);
+    }
+    ph.tput = V3{tput.x * alb.x * tput_fac, tput.y * alb.y * tput_fac, tput.z * alb.z * tput_fac};
+    if constexpr (NEE) {
+      ph.prev_pdf = glossy ? pdf_gi : (kind == KIND_MATTE ? cos_i * INV_PI : 0.0f);
+      ph.prev_n = n;
+    }
+  } else {
+    ph.tput = V3{tput.x * alb.x, tput.y * alb.y, tput.z * alb.z};
+  }
+  ph.o = p;
+  ph.d = wi;
+  ph.prev = best;
+  ph.depth = depth + 1;
+  return depth >= max_depth;
 }
 
 // ---- a band's radiance sums ---------------------------------------------
 
-// The body of a megakernel: block (FLUX_PIXELS_PER_BLOCK, FLUX_SAMPLE_SPLIT),
-// one block per FLUX_PIXELS_PER_BLOCK pixels of the band. A thread owns one
-// pixel and every FLUX_SAMPLE_SPLIT-th sample of it; radiance (and Σ
-// luminance²) is summed per pixel in a fixed order (each thread's samples in
-// index order, then a fixed tree over the split in shared memory), with no
-// float atomics, so the result is bit-identical from run to run. A thread
-// whose path dies leaves its bounce loop; nothing inside trace_sample
-// synchronises, so every thread reaches the barriers below.
-template <bool STATS, bool NEE, bool PHYSICAL, class G>
+// The body of a megakernel: a block of FLUX_BLOCK_THREADS threads,
+// blockDim (256 / split, split), one block per 256 / split pixels of the
+// band. The `split` threads of a pixel first write its sampler row into
+// dynamic shared memory, the geometry policy stages its per-lane rows, and
+// one barrier follows. A thread then traces every split-th sample of its
+// pixel in index order, each until its path ends (a lane whose path dies
+// leaves the bounce loop; regenerating paths in its place measured twice as
+// slow on an NVIDIA H100 80GB HBM3 at 700 W: its warps then run the primary
+// ray and a bounce in every iteration). Radiance (and Σ luminance²) is summed per pixel in a fixed
+// order (each thread's samples in index order, then a fixed tree over the
+// split in shared memory), with no float atomics, so the result is
+// bit-identical from run to run for a given split. Nothing between the two
+// barriers synchronises, so every thread reaches the second.
+template <bool STATS, bool NEE, bool PHYSICAL, bool COUNT, class G>
 __device__ __forceinline__ void render_pixels(const G& g, float* __restrict__ out,
                                               uint32_t* __restrict__ counts, int n_pix, int img_w,
                                               int img_h, int row0, int row_stride, uint32_t s0,
@@ -766,52 +900,84 @@ __device__ __forceinline__ void render_pixels(const G& g, float* __restrict__ ou
   constexpr int NCH = STATS ? 4 : 3;
   // Bounces only for K1 and K2; a policy with counters of its own keeps all.
   constexpr int NCOUNT = (NEE || PHYSICAL || G::N_COUNTS > FLUX_N_COUNTS) ? G::N_COUNTS : 1;
-  __shared__ float part[NCH][FLUX_SAMPLE_SPLIT][FLUX_PIXELS_PER_BLOCK];
-  __shared__ uint32_t part_counts[NCOUNT][FLUX_SAMPLE_SPLIT][FLUX_PIXELS_PER_BLOCK];
+  extern __shared__ uint32_t flux_rows[];  // a sampler row per pixel of the block
+  __shared__ float part[NCH][FLUX_BLOCK_THREADS];
+  const int n_px = blockDim.x;  // pixels of the block
+  const int split = blockDim.y;  // threads per pixel
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
-  const int pix = blockIdx.x * FLUX_PIXELS_PER_BLOCK + tx;
+  const int tid = ty * n_px + tx;
+  const int pix = blockIdx.x * n_px + tx;
+  const int words = row_words(NEE, max_depth);
+  uint32_t* row = flux_rows + tx * words;
+
+  int y = 0, col = 0;
+  if (pix < n_pix) {
+    y = row0 + (pix / img_w) * row_stride;
+    col = pix % img_w;
+    const uint32_t pixel_base = hash3(seed, (uint32_t)y, (uint32_t)col);
+    const int used = ROW_DEPTH0 + row_per_depth(NEE) * max_depth;
+    for (int w = ty; w < used; w += split) row[w] = sampler_word<NEE>(pixel_base, w);
+  }
+  g.stage(tid, FLUX_BLOCK_THREADS);
+  __syncthreads();
 
   V3 acc = V3{0.0f, 0.0f, 0.0f};
   float acc_lum2 = 0.0f;  // STATS: Σ luminance² of the samples
-  uint32_t cnt[NCOUNT];
-  for (int c = 0; c < NCOUNT; ++c) cnt[c] = 0u;
+  Counters<COUNT, NCOUNT> cnt;
   if (pix < n_pix) {
-    const int row = row0 + (pix / img_w) * row_stride;
-    const int col = pix % img_w;
-    const uint32_t pixel_base = hash3(seed, (uint32_t)row, (uint32_t)col);
-    for (uint32_t k = (uint32_t)ty; k < n_samples; k += FLUX_SAMPLE_SPLIT) {
+    for (uint32_t k = (uint32_t)ty; k < n_samples; k += (uint32_t)split) {
       const uint32_t s = s0 + k;
       if ((unsigned long long)s >= s_limit) continue;
-      const V3 rad = trace_sample<NEE, PHYSICAL>(g, s, pixel_base, row, col, img_w, img_h, root,
-                                                 max_depth, cnt);
-      acc.x = acc.x + rad.x;
-      acc.y = acc.y + rad.y;
-      acc.z = acc.z + rad.z;
+      Path ph;
+      start_path(ph, row, s, root, y, col, img_w, img_h);
+      while (!(ph.depth > max_depth || bounce<NEE, PHYSICAL>(g, ph, row, root, max_depth, cnt))) {
+      }
+      acc.x = acc.x + ph.rad.x;
+      acc.y = acc.y + ph.rad.y;
+      acc.z = acc.z + ph.rad.z;
       if constexpr (STATS) {
-        const float lum = LUM_R * rad.x + LUM_G * rad.y + LUM_B * rad.z;
+        const float lum = LUM_R * ph.rad.x + LUM_G * ph.rad.y + LUM_B * ph.rad.z;
         acc_lum2 = acc_lum2 + lum * lum;
       }
     }
   }
-  part[0][ty][tx] = acc.x;
-  part[1][ty][tx] = acc.y;
-  part[2][ty][tx] = acc.z;
-  if constexpr (STATS) part[3][ty][tx] = acc_lum2;
-  for (int c = 0; c < NCOUNT; ++c) part_counts[c][ty][tx] = cnt[c];
+  part[0][tid] = acc.x;
+  part[1][tid] = acc.y;
+  part[2][tid] = acc.z;
+  if constexpr (STATS) part[3][tid] = acc_lum2;
   __syncthreads();
-  // Fixed-order tree over the split: ((0+1)+(2+3)) + ((4+5)+(6+7)).
-  for (int stride = 1; stride < FLUX_SAMPLE_SPLIT; stride *= 2) {
+  // Fixed-order tree over the split: ((0+1)+(2+3)) + ((4+5)+(6+7)) for 8.
+  for (int stride = 1; stride < split; stride *= 2) {
     if (ty % (2 * stride) == 0) {
-      for (int ch = 0; ch < NCH; ++ch) part[ch][ty][tx] = part[ch][ty][tx] + part[ch][ty + stride][tx];
-      for (int c = 0; c < NCOUNT; ++c) part_counts[c][ty][tx] += part_counts[c][ty + stride][tx];
+      for (int ch = 0; ch < NCH; ++ch) part[ch][tid] = part[ch][tid] + part[ch][tid + stride * n_px];
     }
     __syncthreads();
   }
   if (ty == 0 && pix < n_pix) {
-    for (int ch = 0; ch < NCH; ++ch) out[ch * n_pix + pix] = part[ch][0][tx];
-    if (counts != nullptr) {
-      for (int c = 0; c < NCOUNT; ++c) counts[c * n_pix + pix] = part_counts[c][0][tx];
+    for (int ch = 0; ch < NCH; ++ch) out[ch * n_pix + pix] = part[ch][tx];
+  }
+  if constexpr (COUNT) {
+    // The counters' own tree, NCH at a time in the same shared memory.
+    uint32_t* pc = reinterpret_cast<uint32_t*>(&part[0][0]);
+#pragma unroll
+    for (int c = 0; c < NCOUNT; c += NCH) {
+      __syncthreads();
+#pragma unroll
+      for (int ch = 0; ch < NCH && c + ch < NCOUNT; ++ch) pc[ch * FLUX_BLOCK_THREADS + tid] = cnt.c[c + ch];
+      __syncthreads();
+      for (int stride = 1; stride < split; stride *= 2) {
+        if (ty % (2 * stride) == 0) {
+#pragma unroll
+          for (int ch = 0; ch < NCH && c + ch < NCOUNT; ++ch) {
+            pc[ch * FLUX_BLOCK_THREADS + tid] += pc[ch * FLUX_BLOCK_THREADS + tid + stride * n_px];
+          }
+        }
+        __syncthreads();
+      }
+      if (ty == 0 && pix < n_pix && counts != nullptr) {
+        for (int ch = 0; ch < NCH && c + ch < NCOUNT; ++ch) counts[(c + ch) * n_pix + pix] = pc[ch * FLUX_BLOCK_THREADS + tx];
+      }
     }
   }
 }

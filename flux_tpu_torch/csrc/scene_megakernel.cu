@@ -18,10 +18,11 @@
 //                          flux_trace.cuh behind Lights::TRI.
 // The path tracer itself (sampling, camera, shading, NEE, the per-pixel sum)
 // is flux_trace.cuh, shared with sweep_megakernel.cu; this file supplies the
-// geometry policy. It is a template on <STATS, NEE, PHYSICAL> like the sweep
-// kernel; sweep or scan, triangles or none, triangle lights or none, and
-// each skip on or off are launch-uniform run-time choices (FluxGeom), so the
-// file builds 8 kernels, not 64. Its plain PyTorch version is
+// geometry policy. It is a template on <STATS, NEE, PHYSICAL, COUNT> like the
+// sweep kernel; sweep or scan, triangles or none, triangle lights or none,
+// and each skip on or off are launch-uniform run-time choices (FluxGeom), so
+// the file builds 12 kernels (8, and 4 counting ones without STATS), not 96.
+// Its plain PyTorch version is
 // flux_tpu_torch/render.py::render_block with an Intersector in scan mode
 // and/or a scene with triangles.
 //
@@ -34,9 +35,10 @@
 //
 // What the design does about that:
 //   * The tables live in device memory with no cap on their size, and each
-//     thread reads the entries it needs through the read-only cache. The 32
-//     threads of a warp trace neighbouring pixels of one sample index, so
-//     they mostly walk the same blocks and a load is one broadcast.
+//     thread reads the entries it needs through the read-only cache. The
+//     threads of a warp trace a few neighbouring pixels and their samples
+//     (the launch plan of flux_trace.cuh), so they mostly walk the same
+//     blocks and a load is one broadcast.
 //   * The skip is a per-thread slab test: a thread folds a block only if its
 //     own ray enters the block's box at or before its running winner t
 //     (t0 <= cap for nearest hits, so that an equal-t candidate with a lower
@@ -46,6 +48,9 @@
 //     test as computed, not as meant, the box is widened by that test's own
 //     error (box_enter): near a tangent the quadratic takes hits a hair
 //     outside the sphere, and further out once |d| has drifted from 1.
+//   * The triangle skip is engaged by the table's block count (the
+//     wrapper's TRI_SKIP_ENGAGE): in a closed room every ray enters every
+//     box, and with 3 blocks the tests only cost.
 //   * No vote, no shared-memory staging and no barrier sits inside the
 //     bounce loop, so a thread whose path has died simply leaves (the TPU
 //     kernel's tile-wide any() has no counterpart here). A NaN slab value
@@ -60,8 +65,11 @@
 //     smaller t. Shapes keep their original numbering (spheres, planes,
 //     triangles), so hit.shape, light_of and the shadow rays' exclusions need
 //     no remapping.
-//   * Radiance is summed as in the sweep kernel: fixed order, no atomics,
-//     bit-identical from run to run.
+//   * The __constant__ scene's per-shape rows that a hit reads with a lane's
+//     own index are staged into shared memory, the sampler rows are computed
+//     once per pixel, the work counters exist only in the counting
+//     instantiations, and radiance is summed as in the sweep kernel: fixed
+//     order, no atomics, bit-identical from run to run.
 
 #include "flux_trace.cuh"
 
@@ -124,8 +132,6 @@ struct FluxGeom {
   int tri_skip;
   int n_lights;
   int lights_have_tris;
-  int count_needed;  // fill the *_NEEDED counters (a second walk of the boxes)
-  int pad;
 };
 
 // What the slab test must allow for, so that a skipped block never holds a
@@ -248,23 +254,30 @@ struct TableLights {
 
 // Scan or sweep over the spheres, the planes, then the triangle fold
 // (intersect.intersect_scan / intersect with triangles, and their any-hit
-// forms).
+// forms). The counting instantiations also fill the *_NEEDED counters, by a
+// second walk of the boxes.
 struct SceneGeom {
   typedef TableLights Lights;
   static constexpr int N_COUNTS = FLUX_SCENE_N_COUNTS;
   const FluxGeom* P;
+  ShapeRows* rows;  // c_scene's spheres (sweep mode) and planes
 
+  __device__ __forceinline__ void stage(int tid, int n_threads) const {
+    stage_shape_rows(rows, tid, n_threads);
+  }
   __device__ __forceinline__ TableLights lights() const { return TableLights{P}; }
   __device__ __forceinline__ int light_of(int shape) const { return __ldg(&P->light_of[shape]); }
 
+  template <class C>
   __device__ __forceinline__ bool nearest(V3 o, V3 d, float a, float inv_a, int prev, Hit* h,
-                                          uint32_t* cnt) const {
+                                          C& cnt) const {
     const FluxGeom& g = *P;
     const float inf = __int_as_float(0x7f800000);
     const V3 inv_d = V3{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
     const RaySlack rs = ray_slack(d);
     RaySlack rs_tri = rs;  // Möller–Trumbore makes no assumption about |d|
     rs_tri.drift = 0.0f;
+    uint32_t tests = 0u, entered = 0u;  // dead unless counted
     // Spheres: (t, original index, slot); slot is the table entry in scan
     // mode and the index itself in sweep mode.
     float best_t = inf;
@@ -272,7 +285,7 @@ struct SceneGeom {
     int slot = -1;
     if (g.scan) {
       walk_blocks(g.sph_box, g.sph_sbox, g.n_sph_blocks, g.sph_skip != 0, o, inv_d, rs, best_t, false,
-                  cnt[CNT_SPH_TESTS], cnt[CNT_SPH_ENTERED], [&](int b) {
+                  tests, entered, [&](int b) {
                     for (int k = 0; k < FLUX_SCAN_BLOCK; ++k) {
                       const int e = b * FLUX_SCAN_BLOCK + k;
                       const float4 s = __ldg(&g.sph_geo[e]);
@@ -287,6 +300,8 @@ struct SceneGeom {
                     }
                     return false;
                   });
+      cnt.add(CNT_SPH_TESTS, tests);
+      cnt.add(CNT_SPH_ENTERED, entered);
     } else {
       sweep_spheres_nearest(o, d, a, inv_a, prev, &best_t, &best_i);
       slot = best_i;
@@ -308,8 +323,10 @@ struct SceneGeom {
     int tr_slot = -1;
     if (g.n_tri_blocks > 0) {
       const int prev_tri = prev - g.tri_base;
+      tests = 0u;
+      entered = 0u;
       walk_blocks(g.tri_box, g.tri_sbox, g.n_tri_blocks, g.tri_skip != 0, o, inv_d, rs_tri, tr_t, false,
-                  cnt[CNT_TRI_TESTS], cnt[CNT_TRI_ENTERED], [&](int b) {
+                  tests, entered, [&](int b) {
                     for (int k = 0; k < FLUX_TRI_BLOCK; ++k) {
                       const int e = b * FLUX_TRI_BLOCK + k;
                       const int idx = __ldg(&g.tri_idx[e]);
@@ -324,13 +341,15 @@ struct SceneGeom {
                     }
                     return false;
                   });
+      cnt.add(CNT_TRI_TESTS, tests);
+      cnt.add(CNT_TRI_ENTERED, entered);
     }
     const bool use_tri = tr_t < best_t;
     const float t_hit = use_tri ? tr_t : best_t;
-    if (g.count_needed) {
-      if (g.scan) cnt[CNT_SPH_NEEDED] += blocks_needed(g.sph_box, g.n_sph_blocks, o, inv_d, rs, t_hit);
+    if constexpr (C::ON) {
+      if (g.scan) cnt.add(CNT_SPH_NEEDED, blocks_needed(g.sph_box, g.n_sph_blocks, o, inv_d, rs, t_hit));
       if (g.n_tri_blocks > 0) {
-        cnt[CNT_TRI_NEEDED] += blocks_needed(g.tri_box, g.n_tri_blocks, o, inv_d, rs_tri, t_hit);
+        cnt.add(CNT_TRI_NEEDED, blocks_needed(g.tri_box, g.n_tri_blocks, o, inv_d, rs_tri, t_hit));
       }
     }
     if (!isfinite(t_hit)) return false;
@@ -345,14 +364,7 @@ struct SceneGeom {
       h->exponent = nrm.w;
       h->alb = xyz(alb);
       h->kind = __float_as_int(alb.w);
-    } else if (pl >= 0) {
-      const int row = g.plane_row0 + pl;
-      h->shape = g.ns_base + pl;
-      h->n = V3{c_scene.pl_normal[pl][0], c_scene.pl_normal[pl][1], c_scene.pl_normal[pl][2]};
-      h->kind = c_scene.kind[row];
-      h->alb = V3{c_scene.alb[row][0], c_scene.alb[row][1], c_scene.alb[row][2]};
-      h->exponent = c_scene.exponent[row];
-    } else if (g.scan) {
+    } else if (g.scan && pl < 0) {
       const float4 s = __ldg(&g.sph_geo[slot]);
       const float4 m = __ldg(&g.sph_mat[slot]);
       h->shape = best_i;
@@ -361,13 +373,10 @@ struct SceneGeom {
       h->kind = __float_as_int(m.z);
       h->alb = xyz(__ldg(&g.sph_alb[slot]));
     } else {
-      const float inv_r = c_scene.sph_invert[slot] / c_scene.sph[slot][3];
-      h->shape = slot;
-      h->n = V3{(p.x - c_scene.sph[slot][0]) * inv_r, (p.y - c_scene.sph[slot][1]) * inv_r,
-                (p.z - c_scene.sph[slot][2]) * inv_r};
-      h->kind = c_scene.kind[slot];
-      h->alb = V3{c_scene.alb[slot][0], c_scene.alb[slot][1], c_scene.alb[slot][2]};
-      h->exponent = c_scene.exponent[slot];
+      // A plane, or a sphere of the sweep: c_scene's row plane_row0 + pl or slot.
+      const int row = pl >= 0 ? g.plane_row0 + pl : slot;
+      h->shape = pl >= 0 ? g.ns_base + pl : slot;
+      hit_from_rows(rows, row, pl < 0, p, h);
     }
     return true;
   }
@@ -375,19 +384,20 @@ struct SceneGeom {
   // Any-hit shadow test: does a shape other than `exclude` cross (o, d) at
   // T_MIN < t < t_max? The ray starts on `origin` (its sphere takes c = 0,
   // its plane or triangle is skipped). Stops at the first occluder.
+  template <class C>
   __device__ __forceinline__ bool occluded(V3 o, V3 d, float a, float inv_a, float t_max,
-                                           int exclude, int origin, uint32_t* cnt) const {
+                                           int exclude, int origin, C& cnt) const {
     const FluxGeom& g = *P;
-    cnt[CNT_SHADOW_FOLDS] += 1u;
+    cnt.add(CNT_SHADOW_FOLDS, 1u);
     const V3 inv_d = V3{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
     const RaySlack rs = ray_slack(d);
     RaySlack rs_tri = rs;
     rs_tri.drift = 0.0f;
     bool occ = false;
-    uint32_t sph_entered = 0u, tri_entered = 0u;
+    uint32_t tests = 0u, sph_entered = 0u, tri_entered = 0u;  // dead unless counted
     if (g.scan) {
       walk_blocks(g.sph_box, g.sph_sbox, g.n_sph_blocks, g.sph_skip != 0, o, inv_d, rs, t_max, true,
-                  cnt[CNT_SPH_TESTS], sph_entered, [&](int b) {
+                  tests, sph_entered, [&](int b) {
                     for (int k = 0; k < FLUX_SCAN_BLOCK; ++k) {
                       const int e = b * FLUX_SCAN_BLOCK + k;
                       const int idx = __ldg(&g.sph_idx[e]);
@@ -401,9 +411,10 @@ struct SceneGeom {
                     }
                     return false;
                   });
-      cnt[CNT_SPH_ENTERED] += sph_entered;
+      cnt.add(CNT_SPH_TESTS, tests);
+      cnt.add(CNT_SPH_ENTERED, sph_entered);
       if (occ) {
-        cnt[CNT_SPH_NEEDED] += 1u;
+        cnt.add(CNT_SPH_NEEDED, 1u);
         return true;
       }
     } else if (sweep_spheres_occluded(o, d, a, inv_a, t_max, exclude, origin)) {
@@ -415,8 +426,9 @@ struct SceneGeom {
       if (t > T_MIN && t < t_max) return true;
     }
     if (g.n_tri_blocks > 0) {
+      tests = 0u;
       walk_blocks(g.tri_box, g.tri_sbox, g.n_tri_blocks, g.tri_skip != 0, o, inv_d, rs_tri, t_max, true,
-                  cnt[CNT_TRI_TESTS], tri_entered, [&](int b) {
+                  tests, tri_entered, [&](int b) {
                     for (int k = 0; k < FLUX_TRI_BLOCK; ++k) {
                       const int e = b * FLUX_TRI_BLOCK + k;
                       const int sidx = g.tri_base + __ldg(&g.tri_idx[e]);
@@ -431,29 +443,76 @@ struct SceneGeom {
                     }
                     return false;
                   });
-      cnt[CNT_TRI_ENTERED] += tri_entered;
+      cnt.add(CNT_TRI_TESTS, tests);
+      cnt.add(CNT_TRI_ENTERED, tri_entered);
       if (occ) {
-        cnt[CNT_TRI_NEEDED] += 1u;
+        cnt.add(CNT_TRI_NEEDED, 1u);
         return true;
       }
     }
     // It came through: it had to look into every block it entered.
-    cnt[CNT_SPH_NEEDED] += sph_entered;
-    cnt[CNT_TRI_NEEDED] += tri_entered;
+    cnt.add(CNT_SPH_NEEDED, sph_entered);
+    cnt.add(CNT_TRI_NEEDED, tri_entered);
     return false;
   }
 };
 
 // ---- the kernel ----------------------------------------------------------
 
-template <bool STATS, bool NEE, bool PHYSICAL>
-__global__ void __launch_bounds__(FLUX_PIXELS_PER_BLOCK * FLUX_SAMPLE_SPLIT)
+// Four blocks on a multiprocessor: ptxas then holds the scene kernels to 64
+// registers, at the price of some spills in the NEE and physical
+// instantiations; left free it takes 78-112 registers without spills, and
+// only two or three blocks fit. The four blocks were the faster on an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md).
+#define FLUX_SCENE_MIN_BLOCKS 4
+
+template <bool STATS, bool NEE, bool PHYSICAL, bool COUNT>
+__global__ void __launch_bounds__(FLUX_BLOCK_THREADS, FLUX_SCENE_MIN_BLOCKS)
 scene_megakernel(const FluxGeom geom, float* __restrict__ out, uint32_t* __restrict__ counts,
                  int n_pix, int img_w, int img_h, int row0, int row_stride, uint32_t s0,
                  uint32_t n_samples, unsigned long long s_limit, uint32_t seed, uint32_t root,
                  int max_depth) {
-  render_pixels<STATS, NEE, PHYSICAL>(SceneGeom{&geom}, out, counts, n_pix, img_w, img_h, row0,
-                                      row_stride, s0, n_samples, s_limit, seed, root, max_depth);
+  render_pixels<STATS, NEE, PHYSICAL, COUNT>(SceneGeom{&geom, shape_rows()}, out, counts, n_pix, img_w,
+                                             img_h, row0, row_stride, s0, n_samples, s_limit, seed, root,
+                                             max_depth);
+}
+
+typedef void (*SceneKernel)(const FluxGeom, float*, uint32_t*, int, int, int, int, int, uint32_t,
+                            uint32_t, unsigned long long, uint32_t, uint32_t, int);
+
+// The instantiation <with_stats, nee, physical, count>; the counting ones
+// exist without stats only (the stats channel changes no work). Null if
+// there is none.
+static SceneKernel pick_kernel(int with_stats, int nee, int physical, int count) {
+  const int cfg = (nee ? 2 : 0) | (physical ? 1 : 0);
+  if (count) {
+    if (with_stats) return nullptr;
+    switch (cfg) {
+      case 0: return scene_megakernel<false, false, false, true>;
+      case 1: return scene_megakernel<false, false, true, true>;
+      case 2: return scene_megakernel<false, true, false, true>;
+      default: return scene_megakernel<false, true, true, true>;
+    }
+  }
+  switch (cfg | (with_stats ? 4 : 0)) {
+    case 0: return scene_megakernel<false, false, false, false>;
+    case 1: return scene_megakernel<false, false, true, false>;
+    case 2: return scene_megakernel<false, true, false, false>;
+    case 3: return scene_megakernel<false, true, true, false>;
+    case 4: return scene_megakernel<true, false, false, false>;
+    case 5: return scene_megakernel<true, false, true, false>;
+    case 6: return scene_megakernel<true, true, false, false>;
+    default: return scene_megakernel<true, true, true, false>;
+  }
+}
+
+// Dynamic shared memory of a launch: one sampler row per pixel of a block.
+static size_t rows_bytes(int nee, int split, int max_depth) {
+  return (size_t)(FLUX_BLOCK_THREADS / split) * (size_t)row_words(nee != 0, max_depth) * sizeof(uint32_t);
+}
+
+static bool plan_ok(int split, int max_depth) {
+  return (split == 8 || split == 16 || split == 32) && max_depth >= 0 && max_depth <= FLUX_MAX_DEPTH;
 }
 
 // ---- plain C interface (loaded with ctypes) ------------------------------
@@ -470,38 +529,40 @@ int flux_scene_block_sizes(void) { return FLUX_SCAN_BLOCK * 10000 + FLUX_TRI_BLO
 
 const char* flux_scene_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// Blocks of the instantiation that one SM holds at once, for a launch with
+// `split` threads per pixel at `max_depth`; a negative cudaError_t on failure.
+int flux_scene_blocks_per_sm(int with_stats, int nee, int physical, int count, int split, int max_depth) {
+  const SceneKernel k = pick_kernel(with_stats, nee, physical, count);
+  if (k == nullptr || !plan_ok(split, max_depth)) return -(int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, (const void*)k, FLUX_BLOCK_THREADS, rows_bytes(nee, split, max_depth));
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 // Uploads the scene record and launches the instantiation <with_stats, nee,
-// physical> on `stream`. `out` is a device buffer of 3 × n_pix floats
-// (4 × n_pix with stats; channel-major); `counts` is null or a device buffer
-// of FLUX_SCENE_N_COUNTS × n_pix uint32 that receives each pixel's work
-// counters. Returns a cudaError_t, 0 on success.
+// physical, counts != null> on `stream`, in blocks of 256 / split pixels ×
+// split threads. `out` is a device buffer of 3 × n_pix floats (4 × n_pix
+// with stats; channel-major); `counts` is null or a device buffer of
+// FLUX_SCENE_N_COUNTS × n_pix uint32 that receives each pixel's work
+// counters (not with stats). Returns a cudaError_t, 0 on success.
 int flux_scene_render(float* out, uint32_t* counts, const FluxScene* scene, const FluxGeom* geom,
                       int with_stats, int nee, int physical, int n_pix, int img_w, int img_h,
                       int row0, int row_stride, uint32_t s0, uint32_t n_samples,
-                      unsigned long long s_limit, uint32_t seed, uint32_t root, int max_depth,
+                      unsigned long long s_limit, uint32_t seed, uint32_t root, int max_depth, int split,
                       void* stream) {
+  const SceneKernel k = pick_kernel(with_stats, nee, physical, counts != nullptr);
+  if (k == nullptr || !plan_ok(split, max_depth)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err =
       cudaMemcpyToSymbolAsync(c_scene, scene, sizeof(FluxScene), 0, cudaMemcpyHostToDevice, st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(FLUX_PIXELS_PER_BLOCK, FLUX_SAMPLE_SPLIT);
-  const dim3 grid((unsigned)((n_pix + FLUX_PIXELS_PER_BLOCK - 1) / FLUX_PIXELS_PER_BLOCK));
-#define FLUX_LAUNCH(S, N, P)                                                                      \
-  scene_megakernel<S, N, P><<<grid, block, 0, st>>>(*geom, out, counts, n_pix, img_w, img_h, row0, \
-                                                    row_stride, s0, n_samples, s_limit, seed,     \
-                                                    root, max_depth)
-  const int cfg = (with_stats ? 4 : 0) | (nee ? 2 : 0) | (physical ? 1 : 0);
-  switch (cfg) {
-    case 0: FLUX_LAUNCH(false, false, false); break;
-    case 1: FLUX_LAUNCH(false, false, true); break;
-    case 2: FLUX_LAUNCH(false, true, false); break;
-    case 3: FLUX_LAUNCH(false, true, true); break;
-    case 4: FLUX_LAUNCH(true, false, false); break;
-    case 5: FLUX_LAUNCH(true, false, true); break;
-    case 6: FLUX_LAUNCH(true, true, false); break;
-    default: FLUX_LAUNCH(true, true, true); break;
-  }
-#undef FLUX_LAUNCH
+  const int n_px = FLUX_BLOCK_THREADS / split;
+  const dim3 block((unsigned)n_px, (unsigned)split);
+  const dim3 grid((unsigned)((n_pix + n_px - 1) / n_px));
+  k<<<grid, block, rows_bytes(nee, split, max_depth), st>>>(*geom, out, counts, n_pix, img_w, img_h, row0,
+                                                            row_stride, s0, n_samples, s_limit, seed, root,
+                                                            max_depth);
   return (int)cudaGetLastError();
 }
 

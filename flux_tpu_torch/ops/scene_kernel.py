@@ -42,7 +42,7 @@ from ..scene import SceneTensors
 from . import build
 from .intersect import SCAN_BLOCK, TRI_SCAN_BLOCK, Intersector, ScanLayout, TriLayout
 from .nee import LightTensors
-from .sweep_kernel import FluxScene, pack_scene
+from .sweep_kernel import FluxScene, check_launch, pack_scene, plan_launch
 
 __all__ = [
     "render_block_scene",
@@ -55,6 +55,8 @@ __all__ = [
     "COUNT_NAMES",
     "N_COUNTS",
     "SUPER",
+    "TRI_SKIP_ENGAGE",
+    "tri_skip_engaged",
     "flops_lower_bound",
     "table_bytes",
 ]
@@ -67,6 +69,16 @@ COUNT_NAMES = (
     "tri_blocks_needed", "tri_blocks_entered", "tri_box_tests", "shadow_folds",
 )
 N_COUNTS = len(COUNT_NAMES)
+# The triangle skip is engaged from this many triangle blocks on; below it
+# the launch folds every block (flux_tpu's rule, pallas_kernel.py:1177-1178).
+# The threshold was measured on an NVIDIA H100 80GB HBM3 at 700 W
+# (chip_smoke.py phase 14, ms with the skip on / off): a mesh of 2 blocks at
+# 16 spp 0.376 / 0.539, 5 blocks 0.568 / 0.831, 20 blocks 0.814 / 2.199, 80
+# blocks 1.334 / 8.317; the Cornell box's 3 blocks at 1024 spp with NEE
+# 42.22 / 36.95 (in a closed room every ray enters every box). No block
+# count separates the open 2-block mesh from the room: 4 gives up 0.16 ms on
+# the first to save 5.3 ms on the second.
+TRI_SKIP_ENGAGE = 4
 _SOURCE = "scene_megakernel"
 _SKIPS = {"scan_skip", "tri_skip", "two_level"}  # pack_geom's measurement switches
 
@@ -78,7 +90,7 @@ _POINTERS = (
 )
 _INTS = (
     "n_sph_blocks", "n_tri_blocks", "scan", "ns_base", "plane_row0", "tri_base", "sph_skip",
-    "tri_skip", "n_lights", "lights_have_tris", "count_needed", "pad",
+    "tri_skip", "n_lights", "lights_have_tris",
 )
 
 
@@ -248,6 +260,8 @@ def _library() -> ctypes.CDLL:
     for fn in ("flux_scene_n_counts", "flux_scene_block_sizes"):
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = []
+    lib.flux_scene_blocks_per_sm.restype = ctypes.c_int
+    lib.flux_scene_blocks_per_sm.argtypes = [ctypes.c_int] * 6
     lib.flux_scene_error_string.restype = ctypes.c_char_p
     lib.flux_scene_error_string.argtypes = [ctypes.c_int]
     lib.flux_scene_render.restype = ctypes.c_int
@@ -270,6 +284,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_uint32,  # seed
         ctypes.c_uint32,  # root
         ctypes.c_int,  # max_depth
+        ctypes.c_int,  # split
         ctypes.c_void_p,  # stream
     ]
     if (
@@ -282,17 +297,22 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def tri_skip_engaged(n_tri_blocks: int) -> bool:
+    """Whether the triangle skip is on by default for a table of
+    ``n_tri_blocks`` blocks: at ``TRI_SKIP_ENGAGE`` blocks and above."""
+    return n_tri_blocks >= TRI_SKIP_ENGAGE
+
+
 def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTensors], dev, *,
-              scan_skip: bool = True, tri_skip: bool = True, two_level: bool = True,
-              count_needed: bool = False):
+              scan_skip: bool = True, tri_skip: Optional[bool] = None, two_level: bool = True):
     """The launch's FluxGeom, and the tensors its pointers point into (keep
     them alive until the launch is queued).
 
-    The measurement switches, all on by default and read by the kernel only
-    (the result is bit-equal either way): ``scan_skip`` and ``tri_skip`` turn
-    the AABB skip over sphere and triangle blocks off (every block is
-    folded), ``two_level`` the second level of boxes over groups of 8
-    blocks."""
+    The switches, read by the kernel only (the result is bit-equal either
+    way): ``scan_skip`` turns the AABB skip over sphere blocks off (every
+    block is folded), ``two_level`` the second level of boxes over groups of
+    8 blocks; ``tri_skip`` forces the skip over triangle blocks on or off,
+    and by default (None) engages it by :func:`tri_skip_engaged`."""
     geom = FluxGeom()
     keep = []
 
@@ -328,8 +348,7 @@ def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTen
     geom.plane_row0 = 0 if scan else ns
     geom.tri_base = ns + npl
     geom.sph_skip = int(scan_skip)
-    geom.tri_skip = int(tri_skip)
-    geom.count_needed = int(count_needed)
+    geom.tri_skip = int(tri_skip_engaged(geom.n_tri_blocks) if tri_skip is None else tri_skip)
     return geom, keep
 
 
@@ -360,12 +379,14 @@ def render_block_scene(
     device (``(n_rows, img_w, 4)`` with ``with_stats``), with the sphere
     intersection of ``isect`` (sweep or scan) and the scene's triangles.
 
-    ``skips`` are :func:`pack_geom`'s measurement switches (``scan_skip``,
-    ``tri_skip``, ``two_level``), which change the kernel's work and not its
-    result. On the card, ``work_counts`` (optional contiguous int32
-    ``(N_COUNTS, n_rows·img_w)`` tensor) receives each pixel's work counters
-    summed over its samples (``COUNT_NAMES``), including the blocks a
-    perfect skip would still have had to fold."""
+    ``skips`` are :func:`pack_geom`'s switches (``scan_skip``, ``tri_skip``,
+    ``two_level``), which change the kernel's work and not its result. On
+    the card, ``work_counts`` (optional contiguous int32 ``(N_COUNTS,
+    n_rows·img_w)`` tensor) receives each pixel's work counters summed over
+    its samples (``COUNT_NAMES``), including the blocks a perfect skip would
+    still have had to fold, from the counting instantiation, without
+    ``with_stats``. The launch's plan is kept as
+    ``render_block_scene.last_plan``."""
     dev = scene.device
     if not set(skips) <= _SKIPS:
         raise TypeError(f"unknown options {sorted(set(skips) - _SKIPS)}")
@@ -394,8 +415,7 @@ def render_block_scene(
         # Its launches would also be counted under the sweep megakernel's names.
         raise ValueError("a sweep without triangles is the sweep megakernel's launch (render_block_sweep)")
     n_pix = n_rows * img_w
-    if not (0 < n_pix < 2**31 and 0 <= n_samples < 2**32 and root >= 1 and max_depth >= 0):
-        raise ValueError(f"bad launch shape n_pix={n_pix} n_samples={n_samples} root={root}")
+    check_launch(n_pix, n_samples, root, max_depth, with_stats, work_counts is not None)
     n_ch = 4 if with_stats else 3
     out = torch.empty((n_ch, n_pix), dtype=torch.float32, device=dev)
     counts_ptr = None
@@ -410,14 +430,16 @@ def render_block_scene(
         counts_ptr = work_counts.data_ptr()
     lib = _library()
     packed = pack_scene(scene, cam, spheres=not scan)
-    geom, keep = pack_geom(scene, isect, lights, dev, count_needed=work_counts is not None, **skips)
+    geom, keep = pack_geom(scene, isect, lights, dev, **skips)
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
+    plan = plan_launch(lib.flux_scene_blocks_per_sm, dev, n_pix, n_samples, with_stats, lights is not None,
+                       physical, work_counts is not None, max_depth)
     with torch.cuda.device(dev):
         err = lib.flux_scene_render(
             out.data_ptr(), counts_ptr, ctypes.byref(packed), ctypes.byref(geom), int(with_stats),
             int(lights is not None), int(physical), n_pix, img_w, img_h, int(row0), int(row_stride),
             int(s0) & MASK, int(n_samples), limit, int(seed) & MASK, int(root), int(max_depth),
-            torch.cuda.current_stream(dev).cuda_stream,
+            plan.split, torch.cuda.current_stream(dev).cuda_stream,
         )
     del keep  # the tables stay cached beside their layouts
     if err != 0:
@@ -428,12 +450,14 @@ def render_block_scene(
     name = config_name(isect.mode, scene.num_triangles > 0, with_stats, lights is not None, physical,
                        tri_lights=lights is not None and lights.has_tris)
     render_block_scene.launches[name] += 1
+    render_block_scene.last_plan = plan
     return out.t().reshape(n_rows, img_w, n_ch)
 
 
 # Kernel launches by configuration (config_name, e.g. "scan+nee" or
 # "sweep+tri+nee+trilight+physical") since the count was last cleared.
 render_block_scene.launches = collections.Counter()
+render_block_scene.last_plan = None
 
 
 # float32 operations per unit of work, counted from csrc/scene_megakernel.cu

@@ -23,7 +23,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,7 +44,10 @@ __all__ = [
     "n_counts",
     "MAX_SPHERES",
     "MAX_PLANES",
+    "MAX_DEPTH",
     "flops_lower_bound",
+    "LaunchPlan",
+    "launch_plan",
 ]
 
 MAX_SPHERES = 64
@@ -52,6 +55,9 @@ MAX_PLANES = 16
 MAX_SHAPES = MAX_SPHERES + MAX_PLANES
 MAX_LIGHTS = MAX_SPHERES  # every sphere light is a sweep sphere
 N_COUNTS = 5  # work counters per pixel with NEE or physical (else 1)
+MAX_DEPTH = 32  # the deepest path the kernels' sampler rows hold (FLUX_MAX_DEPTH)
+BLOCK_THREADS = 256  # threads of a block (FLUX_BLOCK_THREADS)
+SPLITS = (8, 16, 32)  # threads per pixel a launch may take
 _SOURCE = "sweep_megakernel"
 
 _F4 = ctypes.c_float * 4
@@ -185,6 +191,10 @@ def _library() -> ctypes.CDLL:
     lib.flux_sweep_max_spheres.argtypes = []
     lib.flux_sweep_max_planes.restype = ctypes.c_int
     lib.flux_sweep_max_planes.argtypes = []
+    lib.flux_sweep_max_depth.restype = ctypes.c_int
+    lib.flux_sweep_max_depth.argtypes = []
+    lib.flux_sweep_blocks_per_sm.restype = ctypes.c_int
+    lib.flux_sweep_blocks_per_sm.argtypes = [ctypes.c_int] * 6
     lib.flux_sweep_error_string.restype = ctypes.c_char_p
     lib.flux_sweep_error_string.argtypes = [ctypes.c_int]
     lib.flux_sweep_render.restype = ctypes.c_int
@@ -206,10 +216,12 @@ def _library() -> ctypes.CDLL:
         ctypes.c_uint32,  # seed
         ctypes.c_uint32,  # root
         ctypes.c_int,  # max_depth
+        ctypes.c_int,  # split
         ctypes.c_void_p,  # stream
     ]
     if (
         lib.flux_sweep_scene_bytes() != ctypes.sizeof(FluxScene)
+        or lib.flux_sweep_max_depth() != MAX_DEPTH
         or lib.flux_sweep_lights_bytes() != ctypes.sizeof(FluxLights)
         or lib.flux_sweep_n_counts() != N_COUNTS
         or lib.flux_sweep_max_spheres() != MAX_SPHERES
@@ -217,6 +229,75 @@ def _library() -> ctypes.CDLL:
     ):
         raise RuntimeError("FluxScene/FluxLights layout differs between Python and CUDA")
     return lib
+
+
+class LaunchPlan(NamedTuple):
+    """How a launch cuts its band: ``pixels_per_block`` pixels × ``split``
+    threads per pixel in each of ``blocks`` blocks of 256 threads, of which
+    the card holds ``slots`` at once."""
+
+    split: int
+    pixels_per_block: int
+    blocks: int
+    slots: int
+
+    @property
+    def waves(self) -> float:
+        return self.blocks / self.slots
+
+
+# The slots the plan assumes: an H100's 132 SMs at 4 blocks of 256 threads
+# each. The plan depends on the launch's shape alone, not on the card or the
+# kernel's occupancy, so that both kernels (whose sums must agree bit for
+# bit) and every card cut a launch alike.
+PLAN_SLOTS = 132 * 4
+
+
+def launch_plan(n_pix: int, n_samples: int, slots: int = PLAN_SLOTS) -> LaunchPlan:
+    """The split (threads per pixel, one of ``SPLITS``) of a launch of
+    ``n_pix`` pixels × ``n_samples`` samples on a card that holds ``slots``
+    blocks at once. Blocks of one launch take about equally long, so a
+    launch lasts about its waves, rounded up, times the samples a thread
+    takes; the plan minimises that product over the splits that leave no
+    thread without a sample, ties to the larger split (a warp over fewer
+    pixels and more of their samples, finer blocks)."""
+    best = None
+    for split in SPLITS:
+        if split > max(n_samples, SPLITS[0]):
+            continue
+        px = BLOCK_THREADS // split
+        blocks = -(-n_pix // px)
+        cost = -(-blocks // slots) * -(-max(n_samples, 1) // split)
+        if best is None or cost <= best[0]:
+            best = (cost, LaunchPlan(split, px, blocks, slots))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_launch(blocks_per_sm, dev: torch.device, n_pix: int, n_samples: int, with_stats: bool,
+                nee: bool, physical: bool, count: bool, max_depth: int) -> LaunchPlan:
+    """The launch plan of one launch, with the slots the card really holds
+    for it, from the kernel library's occupancy query ``blocks_per_sm(
+    with_stats, nee, physical, count, split, max_depth)``."""
+    plan = launch_plan(n_pix, n_samples)
+    n = blocks_per_sm(int(with_stats), int(nee), int(physical), int(count), plan.split, int(max_depth))
+    if n <= 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return plan._replace(slots=n * _sm_count(index))
+
+
+def check_launch(n_pix: int, n_samples: int, root: int, max_depth: int, with_stats: bool, counting: bool) -> None:
+    """Raises on a launch the kernels do not take."""
+    if not (0 < n_pix < 2**31 and 0 <= n_samples < 2**32 and root >= 1 and 0 <= max_depth <= MAX_DEPTH):
+        raise ValueError(f"bad launch shape n_pix={n_pix} n_samples={n_samples} root={root} "
+                         f"max_depth={max_depth} (at most {MAX_DEPTH})")
+    if counting and with_stats:
+        raise ValueError("work counters come from a launch without with_stats (the stats channel adds no work)")
 
 
 def n_counts(nee: bool, physical: bool) -> int:
@@ -252,7 +333,9 @@ def render_block_sweep(
     ``bounce_counts`` (optional contiguous int32 tensor) receives each
     pixel's work counters summed over its samples: shape ``(n_rows·img_w,)``
     (bounces) for K1 and K2, ``(N_COUNTS, n_rows·img_w)`` with ``lights`` or
-    ``physical`` (row 0 bounces; see :func:`flops_lower_bound`)."""
+    ``physical`` (row 0 bounces; see :func:`flops_lower_bound`), from the
+    counting instantiation, without ``with_stats``. The launch's
+    :class:`LaunchPlan` is kept as ``render_block_sweep.last_plan``."""
     dev = scene.device
     if scene.num_triangles:
         raise ValueError("the sweep megakernel takes no triangles; use render_block_scene")
@@ -277,8 +360,7 @@ def render_block_sweep(
             f"is sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}"
         )
     n_pix = n_rows * img_w
-    if not (0 < n_pix < 2**31 and 0 <= n_samples < 2**32 and root >= 1 and max_depth >= 0):
-        raise ValueError(f"bad launch shape n_pix={n_pix} n_samples={n_samples} root={root}")
+    check_launch(n_pix, n_samples, root, max_depth, with_stats, bounce_counts is not None)
     n_ch = 4 if with_stats else 3
     out = torch.empty((n_ch, n_pix), dtype=torch.float32, device=dev)
     counts_ptr = None
@@ -297,12 +379,14 @@ def render_block_sweep(
     packed = pack_scene(scene, cam)
     packed_lights = None if lights is None else ctypes.byref(pack_lights(lights))
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
+    plan = plan_launch(lib.flux_sweep_blocks_per_sm, dev, n_pix, n_samples, with_stats, lights is not None,
+                       physical, bounce_counts is not None, max_depth)
     with torch.cuda.device(dev):
         err = lib.flux_sweep_render(
             out.data_ptr(), counts_ptr, ctypes.byref(packed), packed_lights, int(with_stats),
             int(physical), n_pix, img_w, img_h, int(row0), int(row_stride), int(s0) & MASK,
             int(n_samples), limit, int(seed) & MASK, int(root), int(max_depth),
-            torch.cuda.current_stream(dev).cuda_stream,
+            plan.split, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -310,12 +394,14 @@ def render_block_sweep(
             f"({lib.flux_sweep_error_string(err).decode()})"
         )
     render_block_sweep.launches[config_name(with_stats, lights is not None, physical)] += 1
+    render_block_sweep.last_plan = plan
     return out.t().reshape(n_rows, img_w, n_ch)
 
 
 # Kernel launches by instantiation (config_name, e.g. "sweep+nee+physical")
 # since the count was last cleared; .total() counts them all.
 render_block_sweep.launches = collections.Counter()
+render_block_sweep.last_plan = None
 
 
 # float32 operations per unit of work, counted from csrc/sweep_megakernel.cu

@@ -216,7 +216,7 @@ def test_scene_kernel_configs_match_plain(card, name, accel, nee, physical, stat
     assert render_block_scene.launches[cfg] == before + 2
     assert k.shape == (4, w, 4 if stats else 3)
     assert torch.equal(k.view(torch.int32), k2.view(torch.int32))
-    for off in (dict(scan_skip=False, tri_skip=False), dict(two_level=False)):
+    for off in (dict(scan_skip=False, tri_skip=False), dict(two_level=False), dict(tri_skip=True)):
         ko = render_block_scene(sc, cam, h // 2, 0, 11, n_samples=16, **kw, **off)
         assert torch.equal(k.view(torch.int32), ko.view(torch.int32)), off
     p = render_block(sc, cam, h // 2, 0, 11, n_samples=16, **kw)
