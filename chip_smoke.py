@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``flux_tpu_torch``) on one CUDA card.
 
-Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
+Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``
+(``--parent DIR``: see phase 15).
 It needs one Hopper card (the kernels are built for ``sm_90a``), ``nvcc``
 and PyTorch built for CUDA; it imports neither JAX nor ``flux_tpu``.
 
@@ -11,8 +12,8 @@ Phases, in order; any failure exits non-zero before the result line:
    limit as ``nvidia-smi`` reports them;
 2. build: compiles ``flux_tpu_torch/csrc/sweep_megakernel.cu`` and
    ``scene_megakernel.cu`` (every instantiation of both templates) with
-   nvcc, both at once, and prints the build seconds and the compiler's
-   register report for each;
+   nvcc, and phase 15's variants of the first, all at once, and prints the
+   build seconds and the compiler's register report for each;
 3. kernel vs plain: demo2 at its full 800 width, an 8-row band, root 4,
    depth 5, seed 42, through the kernel and through its plain PyTorch
    version on the card; two kernel launches must be bitwise equal, and
@@ -26,7 +27,8 @@ Phases, in order; any failure exits non-zero before the result line:
    the JAX package's render of the same frame and seed
    (artifacts/demo2_16384spp.png);
 6. measurement at the main path's shapes (one 50-row band at 16384 spp):
-   the kernel's time, its bound, and the plain version's time; the two
+   the kernel's time (CUDA events around 5 launches back to back, per
+   launch, median of 3), its bound, and the plain version's time; the two
    results on that launch are held against each other at phase 3's gate,
    and their max |diff| is the ``max_abs_err`` of the kernels line;
 7. kernel vs plain for each new instantiation (stats, nee, physical,
@@ -87,7 +89,7 @@ Phases, in order; any failure exits non-zero before the result line:
    equal), the blocks entered per fold, and the band's first row against
    the plain version;
 13. measurement of each scene-megakernel configuration at its path's launch
-   shape (CUDA events, median of 3) beside its operation bound from the
+   shape (timed as in phase 6) beside its operation bound from the
    kernel's work counters, the plain version's time on the launch's first
    2-4 rows (the whole launch would take minutes; demo5's 1024-spp band is
    run whole), and those rows of the path's own launch held against it; the
@@ -97,7 +99,21 @@ Phases, in order; any failure exits non-zero before the result line:
    on 42 rows and K7 on 48 rows beside their 50-row bands (the cost per
    row as the last wave empties), and the triangle skip on and off on
    meshes of 2 to 80 triangle blocks and on the Cornell box, bitwise equal,
-   beside the rule ``scene_kernel.TRI_SKIP_ENGAGE``.
+   beside the rule ``scene_kernel.TRI_SKIP_ENGAGE``;
+15. the NEE arm of the sweep megakernel, step by step, on the K3 launch (a
+   demo2 50-row band at 1024 spp) and the MIS + stats launch (a demo3
+   128-row band at 64 spp): the sources are built again with design steps
+   undone by text edits (in phase 2, beside the two libraries; a variant
+   whose edit no longer applies is left out, and said so), and the phase
+   prints each build's registers, spills and stack frame, the local
+   memory and calls in the SASS, the clock split of a bounce from the
+   counting launch with all the steps undone and with none, every
+   variant's time on both launches in turns with its bits against the one
+   with all steps undone, and the final sources' time at each split of the
+   launch plan. With ``--parent DIR`` (the root of another checkout, such
+   as the parent commit's, unpacked by ``git archive``), phase 2 also
+   builds that checkout's sweep source, and phase 15 times it beside the
+   current build on every row of phases 6 and 9, in turns, bitwise.
 
 Every phase prints its wall seconds. It ends with a ``{"kernels": [...]}``
 line (one entry per instantiation and configuration) and then the result
@@ -106,8 +122,10 @@ line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
+import hashlib
 import json
 import os
 import subprocess
@@ -128,12 +146,16 @@ from flux_tpu_torch.ops import build, scene_kernel
 from flux_tpu_torch.ops.intersect import Intersector, scan_layout, tri_layout
 from flux_tpu_torch.ops.nee import extract_lights
 from flux_tpu_torch.ops.scene_kernel import render_block_scene
+from flux_tpu_torch.ops import sweep_kernel
 from flux_tpu_torch.ops.sweep_kernel import (
     FluxLights,
     FluxScene,
     config_name,
     flops_lower_bound,
+    launch_plan,
     n_counts,
+    pack_lights,
+    pack_scene,
     render_block_sweep,
 )
 from flux_tpu_torch.render import Renderer, finalize, plan_chunks, render_block
@@ -187,6 +209,24 @@ def event_ms(fn, reps: int) -> list:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return times
+
+
+def launch_ms(fn, reps: int = 3, n: int = 5) -> list:
+    """Device milliseconds per call, by CUDA events around ``n`` calls back
+    to back (the host's work for a call overlaps the device's run of the
+    one before, as in a render's band loop), ``reps`` times, after a
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
     return times
 
 
@@ -366,12 +406,16 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
         scene, samples, work[0], with_stats=stats, physical=physical, light_samples=work[1],
         shadow_rays=work[2], reverse_densities=work[3], glossy_lobes=work[4],
     )
+    # The bound as it stood while shadow rays were swept alone: they also
+    # paid the origin terms they now share with the next bounce's ray.
+    shared = work[2] * (max(scene.num_spheres - 1, 0) * sweep_kernel._OPS_PER_SPHERE_ORIGIN
+                        + max(scene.num_planes - 1, 0) * sweep_kernel._OPS_PER_PLANE_ORIGIN)
     # Radiance (and Σ lum²) out; the scene and light constants in.
     bytes_moved = (4 if stats else 3) * n_pix * 4 + ctypes.sizeof(FluxScene) + (
         ctypes.sizeof(FluxLights) if nee else 0)
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    kernel_ms = event_ms(lambda: render_block_sweep(scene, cam, row0, 0, 0, **kw), 3)
+    kernel_ms = launch_ms(lambda: render_block_sweep(scene, cam, row0, 0, 0, **kw))
     plan = plan_of(render_block_sweep.last_plan)
     k = render_block_sweep(scene, cam, row0, 0, 0, **kw)
     frame_ms = None
@@ -408,6 +452,7 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
         "flops_lower_bound": flops,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ms_shadow_swept_alone": max((flops + shared) / PEAK_FP32_FLOPS * 1e3, bytes_ms),
         "shape": f"{name} band {n_rows}x800 px, {n_samples} spp, depth 5",
     }
     log(f"measure ({what}):", json.dumps(res))
@@ -935,8 +980,8 @@ def phase_big_field(dev) -> dict:
 def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root, plain_rows, nee=False,
                          physical=False, stats=False, skips=()) -> dict:
     """One of a path's launches (seed 0, depth 5, the scene's full width):
-    the kernel's time (median of 3), its bound from its own work counters,
-    and the plain version on the first ``plain_rows`` rows of the band: its
+    the kernel's time (as in phase 6), its bound from its own work
+    counters, and the plain version on the first ``plain_rows`` rows of the band: its
     time there, and those rows of the path's own launch held against it at
     phase 3's gate. ``skips``: wrapper options to time beside the default."""
     sc, cam, isect, lights, w, h = scene_setup(dev, sd, accel, nee)
@@ -954,7 +999,7 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
     bytes_moved = (4 if stats else 3) * n_pix * 4 + ctypes.sizeof(FluxScene) + scene_kernel.table_bytes(
         isect, lights, n_shapes)
     ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, bytes_moved / PEAK_BYTES_PER_S * 1e3
-    kernel_ms = event_ms(lambda: render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kw), 3)
+    kernel_ms = launch_ms(lambda: render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kw))
     plan = plan_of(render_block_scene.last_plan)
     timed = {json.dumps(o): float(np.median(event_ms(
         lambda: render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kw, **o), 3))) for o in skips}
@@ -976,7 +1021,8 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
     log(f"kernel vs plain ({what}, depth 5, seed 0):", json.dumps(cmp))
     check_vs_plain(cmp, what)
     res = {
-        "vs_plain": cmp, "kernel_ms": kernel_ms, "launch_plan": plan, "timed_options_ms": timed,
+        "vs_plain": cmp, "kernel_ms": kernel_ms, "launch_plan": plan,
+        "timed_options_ms": timed,
         "plain_ms": plain_ms,
         "plain_shape": f"{plain_rows}x{w} px, {n_samples} spp (rows [0, {plain_rows}) of the launch)",
         "samples": samples, "bounces_per_sample": c["bounces"] / samples, "work_counts": c,
@@ -1076,6 +1122,295 @@ def phase_design(dev) -> dict:
     return res
 
 
+# ---- phase 15: the NEE arm of the sweep megakernel, step by step ----------
+
+# The design steps of the NEE instantiations, each undone by a text edit of
+# the current sources (file, text in the sources, text in the variant): a.
+# the shadow ray swept with the next bounce's ray; b. four blocks an SM (64
+# registers); c. one range reduction for the cone's cos and sin. Beside
+# them, register caps of 80 and 72, and one step tried and not kept: the
+# carried shadow ray tested on after it is stopped (no early stop, fewer
+# branches).
+STEP_A = ("sweep_megakernel.cu", "  static constexpr bool DEFER_SHADOW = true;\n",
+          "  static constexpr bool DEFER_SHADOW = false;\n"
+          "  template <class C>\n"
+          "  __device__ __forceinline__ bool occluded(V3 o, V3 d, float a, float inv_a, float t_max, int exclude,\n"
+          "                                           int origin, C&) const {\n"
+          "    return sweep_occluded(o, d, a, inv_a, t_max, exclude, origin);\n"
+          "  }\n")
+STEP_B = ("sweep_megakernel.cu", "#define FLUX_SWEEP_NEE_MIN_BLOCKS 4", "#define FLUX_SWEEP_NEE_MIN_BLOCKS 1")
+STEP_C = ("flux_trace.cuh", "  float sd, cd;\n  sincosf(delta, &sd, &cd);  // one range reduction for both",
+          "  const float cd = cosf(delta), sd = sinf(delta);")
+NO_EARLY_STOP = ("flux_trace.cuh", "    if (shadow && !oc && i != exclude) {", "    if (shadow && i != exclude) {")
+NO_EARLY_STOP_PLANES = ("flux_trace.cuh", "    if (shadow && !oc && ns + j != exclude && ns + j != prev) {",
+                        "    if (shadow && ns + j != exclude && ns + j != prev) {")
+CAP_80 = ("sweep_megakernel.cu", "#define FLUX_SWEEP_NEE_MIN_BLOCKS 4", "#define FLUX_SWEEP_NEE_MIN_BLOCKS 3")
+CAP_72 = ("sweep_megakernel.cu",
+          "__global__ void __launch_bounds__(FLUX_BLOCK_THREADS, NEE ? FLUX_SWEEP_NEE_MIN_BLOCKS : 1)",
+          "__global__ void __maxnreg__(72)")
+# name -> the edits that make it; "final" is the sources as they are. An
+# edit that no longer applies to the sources leaves its variant out.
+NEE_VARIANTS = {
+    "before": (STEP_A, STEP_B, STEP_C),
+    "a": (STEP_B, STEP_C),
+    "a, 80 registers": (CAP_80, STEP_C),
+    "a, 72 registers": (CAP_72, STEP_C),
+    "a + b": (STEP_C,),
+    "b": (STEP_A, STEP_C),
+    "b + c": (STEP_A,),
+    "final: a + b + c": (),
+    "final, no early stop": (NO_EARLY_STOP, NO_EARLY_STOP_PLANES),
+}
+FINAL = "final: a + b + c"
+VARIANT_FILES = ("flux_trace.cuh", "sweep_megakernel.cu")
+# The target rows: one launch of each path (seed 0, depth 5, 800 wide).
+NEE_ROWS = {
+    "K3 sweep+nee": dict(name="demo2", row0=300, n_rows=50, n_samples=1024, root=32, nee=True, physical=False,
+                         stats=False),
+    "MIS+stats sweep+nee+physical+stats": dict(name="demo3", row0=256, n_rows=128, n_samples=64, root=32, nee=True,
+                                               physical=True, stats=True),
+}
+
+
+def start_variant_builds(parent: str | None) -> dict:
+    """Writes each design variant's sources, and with ``parent`` (the root of
+    another checkout) that checkout's sweep source as variant "parent",
+    under the build directory, in a folder named by a hash of the sources
+    and the flags as ops/build.py names a library, and starts one nvcc for
+    each that is not built yet. Returns (process or None, library, start)
+    by variant."""
+    base = {f: (build.CSRC / f).read_text() for f in VARIANT_FILES}
+    sources = {}
+    for name, edits in NEE_VARIANTS.items():
+        if not edits:
+            continue
+        stale = [f for f, new, _ in edits if base[f].count(new) != 1]
+        if stale:
+            log(f"build: variant {name!r} left out: its edit of {', '.join(stale)} no longer applies")
+            continue
+        srcs = dict(base)
+        for f, new, old in edits:
+            srcs[f] = srcs[f].replace(new, old)
+        sources[name] = srcs
+    if parent:
+        csrc = os.path.join(parent, "flux_tpu_torch", "csrc")
+        sources["parent"] = {f: open(os.path.join(csrc, f)).read() for f in VARIANT_FILES}
+    running = {}
+    for name, srcs in sources.items():
+        digest = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
+        for f in VARIANT_FILES:
+            digest.update(f.encode() + b"\0" + srcs[f].encode())
+        d = build.BUILD_DIR / "variants" / digest.hexdigest()[:16]
+        lib = d / "libsweep_megakernel.so"
+        if lib.exists():
+            running[name] = (None, lib, time.perf_counter())
+            continue
+        d.mkdir(parents=True, exist_ok=True)
+        for f, text in srcs.items():
+            (d / f).write_text(text)
+        tmp = d / f"lib.{os.getpid()}.tmp"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(tmp), str(d / "sweep_megakernel.cu")]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib,
+                         time.perf_counter())
+    return running
+
+
+def finish_variant_builds(running: dict) -> dict:
+    """Waits for the variants' builds: variant -> (library, ptxas report).
+    Only the 72-register cap may fail (``__maxnreg__`` needs CUDA 12.4)."""
+    built = {}
+    for name, (proc, lib, t0) in running.items():
+        log_file = lib.with_suffix(".log")
+        if proc is None:
+            report = log_file.read_text()
+            log(f"build: variant {name!r} already built")
+        else:
+            report = proc.communicate()[0]
+            log(f"build: variant {name!r} in {time.perf_counter() - t0:.1f} s, rc {proc.returncode}")
+            if proc.returncode != 0:
+                check(name == "a, 72 registers", f"variant {name} failed to build:\n{report}")
+                log(report[-2000:])
+                continue
+            log_file.write_text(report)
+            os.replace(lib.parent / f"lib.{os.getpid()}.tmp", lib)
+        built[name] = (sweep_kernel.declare(ctypes.CDLL(str(lib))), report, lib)
+    built[FINAL] = (sweep_kernel._library(), build.BUILD_LOG["sweep_megakernel"]["ptxas"],
+                    build._plan("sweep_megakernel")[1])
+    return built
+
+
+def ptxas_rows(report: str) -> dict:
+    """Registers, spill bytes and stack frame of each sweep instantiation
+    from a ptxas report, keyed <STATS,NEE,PHYSICAL,COUNT>."""
+    import re
+
+    rows, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '_Z16sweep_megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+        if m:
+            cur = "<" + ",".join(m.groups()) + ">"
+            rows[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            rows[cur].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[cur]["registers"] = int(m[1])
+    return rows
+
+
+def sass_local(lib_path: str) -> dict:
+    """Local-memory stores and loads and calls in the SASS of each NEE
+    instantiation (cuobjdump -sass): the slow path of sinf and cosf and
+    spills show there."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120).stdout
+    except OSError as e:
+        return {"error": str(e)}
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : _Z16sweep_megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+        if m:
+            cur = "<" + ",".join(m.groups()) + ">"
+            out[cur] = {"STL": 0, "LDL": 0, "CALL": 0, "instructions": 0}
+        elif cur is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            out[cur]["instructions"] += 1
+            for op in ("STL", "LDL", "CALL"):
+                if re.search(rf"\b{op}\b", line):
+                    out[cur][op] += 1
+    return {k: v for k, v in out.items() if k[3] == "1"}  # the NEE ones
+
+
+def raw_sweep(lib, scene, cam, lights, *, row0, n_rows, n_samples, root, physical, stats, split, counts=None):
+    """One launch of a sweep kernel library (the wrapper's call, with the
+    split given): seed 0, depth 5, 800x600. Not counted in the wrapper's
+    launches."""
+    n_pix = n_rows * 800
+    out = torch.empty((4 if stats else 3, n_pix), dtype=torch.float32, device=scene.device)
+    packed = pack_scene(scene, cam)
+    pl = None if lights is None else ctypes.byref(pack_lights(lights))
+    err = lib.flux_sweep_render(
+        out.data_ptr(), None if counts is None else counts.data_ptr(), ctypes.byref(packed), pl, int(stats),
+        int(physical), n_pix, 800, 600, row0, 1, 0, n_samples, 1 << 32, 0, root, 5, split,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"raw sweep launch failed: CUDA error {err}")
+    return out
+
+
+def clock_split(lib, scene, cam, lights, shape: dict) -> dict:
+    """The counting instantiation's counters on a launch (the stats channel
+    adds no work, so without it): work, and the cycles of each phase of a
+    bounce as shares of their sum, per sample and per bounce."""
+    n_pix = shape["n_rows"] * 800
+    counts = torch.zeros((sweep_kernel.N_COUNTS, n_pix), dtype=torch.int32, device=scene.device)
+    split = launch_plan(n_pix, shape["n_samples"]).split
+    raw_sweep(lib, scene, cam, lights, row0=shape["row0"], n_rows=shape["n_rows"], n_samples=shape["n_samples"],
+              root=shape["root"], physical=shape["physical"], stats=False, split=split, counts=counts)
+    torch.cuda.synchronize()
+    c = (counts.to(torch.int64) & 0xFFFFFFFF).sum(dim=1).tolist()
+    named = dict(zip(sweep_kernel.COUNT_NAMES, c))
+    clk = {k: v for k, v in named.items() if k.startswith("clk_")}
+    total = max(sum(clk.values()), 1)
+    samples = n_pix * shape["n_samples"]
+    return {"work": {k: v for k, v in named.items() if not k.startswith("clk_")},
+            "cycles_share": {k: v / total for k, v in clk.items()},
+            "cycles_per_sample": total / samples, "cycles_per_bounce": total / max(named["bounces"], 1)}
+
+
+def phase_nee_steps(dev, built: dict) -> dict:
+    """Phase 15: the NEE arm's design, measured on the two target launches
+    (K3 on a demo2 band at 1024 spp; MIS + stats on a demo3 band at 64
+    spp). Each design variant's registers and spills (ptxas) and local
+    memory and calls (SASS); the clock split of a bounce from the counting
+    launch with every step undone ("before") and of the final sources;
+    every variant timed on each launch in turns (forward, then backward;
+    CUDA events around 3 launches, median of 6 rounds, with the quartile
+    spread) and its sums bitwise against "before"; and the final sources
+    at each split of the plan on both launches. With a "parent" variant,
+    also K1's main-path band through the parent's build and the final one
+    in turns, bitwise."""
+    res = {"ptxas": {n: {k: v for k, v in ptxas_rows(r).items() if k[3] == "1" or n == "parent" or n == FINAL}
+                     for n, (_, r, _) in built.items()}}
+    base = "before" if "before" in built else FINAL
+    res["sass"] = {n: sass_local(str(built[n][2])) for n in {base, FINAL}}
+    names = list(built)
+    for row, shape in NEE_ROWS.items():
+        sd, scene, cam = scene_on(dev, shape["name"])
+        lights = extract_lights(sd, dev)
+        n_pix = shape["n_rows"] * 800
+        plan_split = launch_plan(n_pix, shape["n_samples"]).split
+        kw = dict(row0=shape["row0"], n_rows=shape["n_rows"], n_samples=shape["n_samples"], root=shape["root"],
+                  physical=shape["physical"], stats=shape["stats"])
+        r = {"split": plan_split,
+             "clock_split_before": clock_split(built[base][0], scene, cam, lights, shape),
+             "clock_split_final": clock_split(built[FINAL][0], scene, cam, lights, shape)}
+        ref = raw_sweep(built[base][0], scene, cam, lights, split=plan_split, **kw)
+        times = {n: [] for n in names}
+        bits = {}
+        for n in names:  # a warm-up launch each, and the bits
+            out = raw_sweep(built[n][0], scene, cam, lights, split=plan_split, **kw)
+            torch.cuda.synchronize()
+            bits[n] = bits_equal(out, ref)
+        for rnd in range(6):
+            for n in (names if rnd % 2 == 0 else names[::-1]):
+                times[n] += launch_ms(lambda: raw_sweep(built[n][0], scene, cam, lights, split=plan_split, **kw),
+                                      reps=1, n=3)
+        r["ms"] = {n: float(np.median(t)) for n, t in times.items()}
+        r["ms_quartile_spread"] = {n: float(np.subtract(*np.percentile(t, [75, 25]))) for n, t in times.items()}
+        r["bits_equal_before"] = bits
+        final = built[FINAL][0]
+        splits = {sp: [] for sp in (8, 16, 32)}
+        for rnd in range(6):
+            for sp in ((8, 16, 32) if rnd % 2 == 0 else (32, 16, 8)):
+                splits[sp] += launch_ms(lambda: raw_sweep(final, scene, cam, lights, split=sp, **kw), reps=1, n=3)
+        r["final_ms_by_split"] = {sp: float(np.median(t)) for sp, t in splits.items()}
+        res[row] = r
+        log(f"NEE steps ({row}, {shape['name']} band {shape['n_rows']}x800, {shape['n_samples']} spp):",
+            json.dumps(r))
+    if "parent" in built:
+        res["parent"] = parent_rows(dev, built)
+    log("NEE steps (registers, spills, stack; local memory in SASS):",
+        json.dumps({k: res[k] for k in ("ptxas", "sass")}))
+    return res
+
+
+def parent_rows(dev, built: dict) -> dict:
+    """Every sweep instantiation's row of phases 6 and 9 (the same launch)
+    through the parent's build and the final one in turns (parent, final,
+    final, parent, twice; CUDA events around 3 launches back to back,
+    median of the 8 rounds of each, with the quartile spread), and whether
+    the two give the same bits."""
+    rows = [("sweep", dict(name="demo2", row0=300, n_rows=50, n_samples=16384, root=128))]
+    rows += [(cfg, shape) for cfg, _, shape in MEASURE]
+    res = {}
+    for cfg, shape in rows:
+        sd, scene, cam = scene_on(dev, shape["name"])
+        lights = extract_lights(sd, dev) if shape.get("nee") else None
+        kw = dict(row0=shape["row0"], n_rows=shape["n_rows"], n_samples=shape["n_samples"], root=shape["root"],
+                  physical=shape.get("physical", False), stats=shape.get("stats", False))
+        split = launch_plan(shape["n_rows"] * 800, shape["n_samples"]).split
+        outs = {n: raw_sweep(built[n][0], scene, cam, lights, split=split, **kw) for n in ("parent", FINAL)}
+        times = {n: [] for n in outs}
+        for rnd in range(4):
+            for n in (("parent", FINAL, FINAL, "parent") if rnd % 2 == 0 else (FINAL, "parent", "parent", FINAL)):
+                times[n] += launch_ms(lambda: raw_sweep(built[n][0], scene, cam, lights, split=split, **kw),
+                                      reps=1, n=3)
+        res[cfg] = {"bits_equal": bits_equal(outs["parent"], outs[FINAL]),
+                    "ms": {n: float(np.median(t)) for n, t in times.items()},
+                    "ms_quartile_spread": {n: float(np.subtract(*np.percentile(t, [75, 25])))
+                                           for n, t in times.items()}}
+        log(f"against the parent ({cfg}, {shape['name']} band {shape['n_rows']}x800, {shape['n_samples']} spp):",
+            json.dumps(res[cfg]))
+    return res
+
+
 def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
                  source: str = "flux_tpu_torch/csrc/sweep_megakernel.cu") -> dict:
     return {
@@ -1097,7 +1432,11 @@ def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke test of flux_tpu_torch on one CUDA card.")
+    ap.add_argument("--parent", help="root of another checkout (say the parent commit's): phase 15 builds its "
+                    "sweep source beside the current one and times both on the same launches, bitwise")
+    args = ap.parse_args(argv)
     # 1. probe
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1105,14 +1444,18 @@ def main() -> int:
     dev = torch.device("cuda")
     card = smi()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    # 2. build: one nvcc per source, both started together
+    # 2. build: one nvcc per source and per design variant of phase 15, all
+    # started together
     t0 = time.perf_counter()
+    variants = start_variant_builds(args.parent)
     build.build_many(list(build.LIBRARIES))
     log(f"build: {len(build.LIBRARIES)} libraries in {time.perf_counter() - t0:.1f} s of wall time")
     for name in build.LIBRARIES:
         info = build.BUILD_LOG[name]
         log(f"build: {name} in {info['seconds']:.1f} s")
         log(info["ptxas"].strip())
+    built_variants = finish_variant_builds(variants)
+    log(f"build: with {len(variants)} design variants, {time.perf_counter() - t0:.1f} s of wall time")
     # 3-6
     with phase_timer("3 kernel vs plain (K1)"):
         cmp = phase_kernel_vs_plain(dev)
@@ -1162,6 +1505,8 @@ def main() -> int:
             kernels.append(entry)
     with phase_timer("14 design checks"):
         phase_design(dev)
+    with phase_timer("15 the NEE arm, step by step"):
+        phase_nee_steps(dev, built_variants)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -12,16 +12,26 @@
 //
 // A geometry policy G has
 //   typename G::Lights            the light set's accessors (below);
-//   G::N_COUNTS                   work counters per pixel with NEE or PHYSICAL;
+//   G::N_COUNTS                   counters per pixel with NEE or PHYSICAL (the
+//                                 tracer's FLUX_N_COUNTS, then its own);
 //   void stage(tid, n_threads)    copies what the block reads with a per-lane
 //                                 index into shared memory (before a barrier);
 //   bool nearest(o, d, a, inv_a, prev, Hit*, cnt)   the nearest hit;
+//   DEFER_SHADOW                  false: a light sample's shadow ray is
+//                                 swept where it is drawn, by
 //   bool occluded(o, d, a, inv_a, t_max, exclude, origin, cnt)   any hit in
 //                                 (T_MIN, t_max) but by `exclude`;
+//                                 true: it is carried to the next bounce,
+//                                 whose sweep takes it beside that bounce's
+//                                 ray from the same point, by
+//   bool nearest_shadow(o, d, a, inv_a, prev, sh, occ*, Hit*, cnt)   the
+//                                 nearest hit, and in *occ whether the
+//                                 carried shadow ray `sh` is occluded;
 //   int light_of(shape)           the light index of a shape, -1 if none;
 //   Lights lights().
-// `cnt` is a Counters<COUNT, N>: the work counters exist only in the
-// counting instantiations (COUNT), so a timed launch carries none.
+// `cnt` is a Counters<COUNT, N>: the work counters, and the clock split of
+// a bounce, exist only in the counting instantiations (COUNT), so a timed
+// launch carries none.
 // A light policy L has n(), cdf(k), pick(k), center(k) (x, y, z, radius),
 // emit(k), shape_idx(k) and, where L::TRI, has_tris(), is_tri(k), tri_v0(k),
 // tri_e1(k), tri_e2(k), tri_n(k) (x, y, z, area).
@@ -49,9 +59,17 @@
 // The sampler rows are sized for max_depth; the wrappers refuse a deeper one.
 #define FLUX_MAX_DEPTH 32
 // Work counters per pixel (see bounce): bounces, light samples,
-// unoccluded shadow rays, MIS reverse densities, glossy lobe evaluations.
-// A geometry policy may count more behind these.
-#define FLUX_N_COUNTS 5
+// unoccluded shadow rays, MIS reverse densities, glossy lobe evaluations;
+// then the clock64 cycles its threads spent in each phase of a bounce (the
+// split of a bounce's time, read in the counting launches only). A geometry
+// policy may count more behind these.
+#define FLUX_N_WORK 5
+#define CLK_NEAREST 5  // the nearest sweep (with a deferred shadow ray, both rays)
+#define CLK_LIGHT 6  // the light pick, the cone or area sample, the light's own t
+#define CLK_SHADOW 7  // the any-hit shadow sweep where it is not deferred
+#define CLK_SCATTER 8  // the scatter: bounce point, warp, frame, throughput
+#define CLK_MIS 9  // MIS reverse densities, glossy lobes and the light sample's weight
+#define FLUX_N_COUNTS 10
 
 #define KIND_MATTE 0
 #define KIND_EMISSIVE 1
@@ -318,24 +336,38 @@ __device__ __forceinline__ float clip01(float x, float lo, float hi) { return fm
 
 // ---- intersection (ops/intersect.py) -------------------------------------
 
-// The reference's ray-sphere quadratic (intersect.sphere_t): the near root,
-// or the far one when the near is behind T_MIN. `on_self` marks a ray that
-// starts on this sphere, whose c is then exactly 0. Writes t; returns
-// whether the sphere is hit at t > T_MIN.
-__device__ __forceinline__ bool sphere_t(V3 o, V3 d, float a, float inv_a, float cx, float cy,
-                                         float cz, float radius, bool on_self, float* t_out) {
-  const float ocx = o.x - cx, ocy = o.y - cy, ocz = o.z - cz;
-  const float b_half = ocx * d.x + ocy * d.y + ocz * d.z;
-  float c = ocx * ocx + ocy * ocy + ocz * ocz - radius * radius;
-  if (on_self) c = 0.0f;  // exact c on the origin sphere
+// The reference's ray-sphere quadratic (intersect.sphere_t), in two parts:
+// what depends on the ray's origin alone, and the root along a direction.
+// Two rays from one point share the first. `on_self` marks a ray that
+// starts on this sphere, whose c is then exactly 0.
+struct SphereOrigin {
+  float ocx, ocy, ocz;  // o - center
+  float c;  // |o - center|² - radius²
+};
+
+__device__ __forceinline__ SphereOrigin sphere_origin(V3 o, float cx, float cy, float cz, float radius,
+                                                      bool on_self) {
+  SphereOrigin s;
+  s.ocx = o.x - cx;
+  s.ocy = o.y - cy;
+  s.ocz = o.z - cz;
+  s.c = s.ocx * s.ocx + s.ocy * s.ocy + s.ocz * s.ocz - radius * radius;
+  if (on_self) s.c = 0.0f;  // exact c on the origin sphere
+  return s;
+}
+
+// The near root, or the far one when the near is behind T_MIN. Writes t;
+// returns whether the sphere is hit at t > T_MIN.
+__device__ __forceinline__ bool sphere_root(const SphereOrigin& s, V3 d, float a, float inv_a, float* t_out) {
+  const float b_half = s.ocx * d.x + s.ocy * d.y + s.ocz * d.z;
   float disc, t;
   if (c_scene.unit_d) {
-    disc = b_half * b_half - c;
+    disc = b_half * b_half - s.c;
     const float e = sqrtf(fmaxf(disc, 0.0f));
     const float t_near = -b_half - e;
     t = t_near > T_MIN ? t_near : -b_half + e;
   } else {
-    disc = b_half * b_half - a * c;
+    disc = b_half * b_half - a * s.c;
     const float e = sqrtf(fmaxf(disc, 0.0f));
     const float t_near = (-b_half - e) * inv_a;
     t = t_near > T_MIN ? t_near : (-b_half + e) * inv_a;
@@ -344,15 +376,24 @@ __device__ __forceinline__ bool sphere_t(V3 o, V3 d, float a, float inv_a, float
   return disc >= 0.0f && t > T_MIN;
 }
 
-// The unbounded plane test; d·n == 0 gives ±inf or NaN, rejected by the
-// caller's comparisons.
-__device__ __forceinline__ float plane_t(V3 o, V3 d, int j) {
-  const float nx = c_scene.pl_normal[j][0], ny = c_scene.pl_normal[j][1], nz = c_scene.pl_normal[j][2];
-  const float num = (c_scene.pl_point[j][0] - o.x) * nx + (c_scene.pl_point[j][1] - o.y) * ny +
-                    (c_scene.pl_point[j][2] - o.z) * nz;
-  const float den = d.x * nx + d.y * ny + d.z * nz;
-  return num / den;
+__device__ __forceinline__ bool sphere_t(V3 o, V3 d, float a, float inv_a, float cx, float cy,
+                                         float cz, float radius, bool on_self, float* t_out) {
+  return sphere_root(sphere_origin(o, cx, cy, cz, radius, on_self), d, a, inv_a, t_out);
 }
+
+// The unbounded plane test, num / den; d·n == 0 gives ±inf or NaN, rejected
+// by the caller's comparisons. The numerator depends on the origin alone.
+__device__ __forceinline__ float plane_num(V3 o, int j) {
+  const float nx = c_scene.pl_normal[j][0], ny = c_scene.pl_normal[j][1], nz = c_scene.pl_normal[j][2];
+  return (c_scene.pl_point[j][0] - o.x) * nx + (c_scene.pl_point[j][1] - o.y) * ny +
+         (c_scene.pl_point[j][2] - o.z) * nz;
+}
+
+__device__ __forceinline__ float plane_den(V3 d, int j) {
+  return d.x * c_scene.pl_normal[j][0] + d.y * c_scene.pl_normal[j][1] + d.z * c_scene.pl_normal[j][2];
+}
+
+__device__ __forceinline__ float plane_t(V3 o, V3 d, int j) { return plane_num(o, j) / plane_den(d, j); }
 
 // The sweep over the spheres of the __constant__ scene record: the nearest
 // hit, ties to the lowest index (strict < in order). `prev` is the sphere
@@ -386,6 +427,83 @@ __device__ __forceinline__ bool sweep_spheres_occluded(V3 o, V3 d, float a, floa
     }
   }
   return false;
+}
+
+// The whole __constant__ scene, spheres then planes (planes numbered from
+// n_spheres): the nearest hit of (o, d), which starts on shape `prev`, ties
+// to the lowest index; +inf when none.
+__device__ __forceinline__ void sweep_nearest(V3 o, V3 d, float a, float inv_a, int prev, float* best_t,
+                                              int* best) {
+  const int ns = c_scene.n_spheres;
+  *best_t = __int_as_float(0x7f800000);  // +inf
+  *best = 0;
+  sweep_spheres_nearest(o, d, a, inv_a, prev, best_t, best);
+  for (int j = 0; j < c_scene.n_planes; ++j) {
+    const float t = plane_t(o, d, j);
+    if (t > T_MIN && prev != ns + j && t < *best_t) {
+      *best_t = t;
+      *best = ns + j;
+    }
+  }
+}
+
+// Its any-hit form: does a shape other than `exclude` cross (o, d) at
+// T_MIN < t < t_max? The ray starts on `origin`. Stops at the first one.
+__device__ __forceinline__ bool sweep_occluded(V3 o, V3 d, float a, float inv_a, float t_max, int exclude,
+                                               int origin) {
+  const int ns = c_scene.n_spheres;
+  if (sweep_spheres_occluded(o, d, a, inv_a, t_max, exclude, origin)) return true;
+  for (int j = 0; j < c_scene.n_planes; ++j) {
+    if (ns + j == exclude || ns + j == origin) continue;
+    const float t = plane_t(o, d, j);
+    if (t > T_MIN && t < t_max) return true;
+  }
+  return false;
+}
+
+// Both at once, for a shadow ray carried to the next bounce: the nearest hit
+// of (o, d) as sweep_nearest gives it, and in *occ whether the shadow ray
+// (o, ds) meets a shape other than `exclude` at T_MIN < t < t_max, as
+// sweep_occluded gives it for origin `prev`. Both rays start at o on `prev`,
+// so each shape's constants are read once and its origin terms (o - c and
+// c of a sphere, the numerator of a plane) computed once. Without `shadow`
+// the nearest sweep alone and *occ false; once the shadow ray is stopped it
+// is tested no further.
+__device__ __forceinline__ void sweep_nearest_shadow(V3 o, V3 d, float a, float inv_a, int prev, V3 ds,
+                                                     float as, float inv_as, float t_max, int exclude,
+                                                     bool shadow, float* best_t, int* best, bool* occ) {
+  const int ns = c_scene.n_spheres;
+  float bt = __int_as_float(0x7f800000);  // +inf
+  int bi = 0;
+  bool oc = false;
+  for (int i = 0; i < ns; ++i) {
+    const SphereOrigin so =
+        sphere_origin(o, c_scene.sph[i][0], c_scene.sph[i][1], c_scene.sph[i][2], c_scene.sph[i][3], prev == i);
+    float t;
+    if (sphere_root(so, d, a, inv_a, &t) && t < bt) {
+      bt = t;
+      bi = i;
+    }
+    if (shadow && !oc && i != exclude) {
+      float ts;
+      if (sphere_root(so, ds, as, inv_as, &ts) && ts < t_max) oc = true;
+    }
+  }
+  for (int j = 0; j < c_scene.n_planes; ++j) {
+    const float num = plane_num(o, j);
+    const float t = num / plane_den(d, j);
+    if (t > T_MIN && prev != ns + j && t < bt) {
+      bt = t;
+      bi = ns + j;
+    }
+    if (shadow && !oc && ns + j != exclude && ns + j != prev) {
+      const float ts = num / plane_den(ds, j);
+      if (ts > T_MIN && ts < t_max) oc = true;
+    }
+  }
+  *best_t = bt;
+  *best = bi;
+  *occ = oc;
 }
 
 // Möller–Trumbore (intersect.triangle_t). No epsilon guard on the
@@ -523,7 +641,8 @@ __device__ __forceinline__ LightSample sample_light(const LT& lt, V3 p, float ux
   const float c0 = safe ? n_u * inv_rho : 1.0f;
   const float s0 = safe ? n_v * inv_rho : 0.0f;
   const float delta = (2.0f * uy - 1.0f) * phi_lim;
-  const float cd = cosf(delta), sd = sinf(delta);
+  float sd, cd;
+  sincosf(delta, &sd, &cd);  // one range reduction for both
   const float cp = c0 * cd - s0 * sd;
   const float sp = s0 * cd + c0 * sd;
   ls.d = V3{sin_a * (cp * u.x + sp * v.x) + cos_a * w.x, sin_a * (cp * u.y + sp * v.y) + cos_a * w.y,
@@ -635,24 +754,50 @@ __device__ __forceinline__ void hit_from_rows(const ShapeRows* r, int k, bool sp
 
 // ---- work counters --------------------------------------------------------
 
-// Per-thread work counters: N of them with COUNT, none at all without.
+// Per-thread work counters: N of them with COUNT, none at all without. With
+// more than FLUX_N_WORK, lap(k, t) adds the clock64 cycles since t to
+// counter k and restarts t (a per-pixel sum of 32 bits: it wraps after 2^32
+// cycles, about 2 s of one thread).
 template <bool COUNT, int N>
 struct Counters {
   static constexpr bool ON = true;
+  static constexpr bool CLOCKS = N > FLUX_N_WORK;
   uint32_t c[N];
   __device__ __forceinline__ Counters() {
     for (int k = 0; k < N; ++k) c[k] = 0u;
   }
   __device__ __forceinline__ void add(int k, uint32_t v) { c[k] += v; }
+  __device__ __forceinline__ long long now() const {
+    if constexpr (CLOCKS) return clock64();
+    return 0;
+  }
+  __device__ __forceinline__ void lap(int k, long long& t) {
+    if constexpr (CLOCKS) {
+      const long long n = clock64();
+      c[k] += (uint32_t)(n - t);
+      t = n;
+    }
+  }
 };
 
 template <int N>
 struct Counters<false, N> {
   static constexpr bool ON = false;
+  static constexpr bool CLOCKS = false;
   __device__ __forceinline__ void add(int, uint32_t) {}
+  __device__ __forceinline__ long long now() const { return 0; }
+  __device__ __forceinline__ void lap(int, long long&) {}
 };
 
 // ---- one sample's path -----------------------------------------------------
+
+// A shadow ray waiting for the next bounce's sweep: its direction, its far
+// end and the light's shape, which it may cross; `exclude` < 0: none.
+struct Shadow {
+  V3 d;
+  float t_max;
+  int exclude;
+};
 
 // The state of one sample's path between bounces.
 struct Path {
@@ -665,6 +810,11 @@ struct Path {
   bool suppress;  // NEE: the last vertex sampled a light (hard split)
   float prev_pdf;  // NEE + PHYSICAL: density that sampled this ray
   V3 prev_n;  // NEE + PHYSICAL: the last vertex's normal
+  // NEE with a policy that defers shadow rays: the last vertex's shadow ray
+  // (from o, the vertex, on prev), and what it adds if it comes through.
+  Shadow sh;
+  V3 sh_rad;
+  bool sh_lobe;  // its weight took a glossy lobe (a work counter only)
 };
 
 // Sample s of the pixel (row y, col): its thin-lens primary ray
@@ -702,17 +852,57 @@ __device__ __forceinline__ void start_path(Path& ph, const uint32_t* row, uint32
   ph.suppress = false;
   ph.prev_pdf = 0.0f;
   ph.prev_n = V3{0.0f, 0.0f, 0.0f};
+  ph.sh.exclude = -1;
+}
+
+// What a light sample adds to the path's radiance if its shadow ray comes
+// through: throughput × albedo × the light's weight × the BSDF factor (the
+// reference's cosine-free Ω/(2π) for matte; under PHYSICAL the true
+// Lambertian or normalized Phong f·cos, balance-weighted against the
+// vertex's own BSDF density).
+template <bool PHYSICAL>
+__device__ __forceinline__ V3 nee_radiance(V3 tput, V3 alb, const LightSample& ls, float cos_s, bool glossy,
+                                           V3 mirror, V3 n, float e) {
+  float fac;
+  if constexpr (PHYSICAL) {
+    float pdf_b, f_fac;
+    if (glossy) {
+      float phong_l, dup_l;
+      glossy_lobe(mirror, n, e, ls.d, &phong_l, &pdf_b, &dup_l);
+      f_fac = (e + 2.0f) * HALF_INV_PI * phong_l;
+    } else {
+      pdf_b = cos_s * INV_PI;
+      f_fac = INV_PI;
+    }
+    const float w_nee = ls.pdf / fmaxf(ls.pdf + pdf_b, EPS_20);
+    fac = f_fac * cos_s * w_nee;
+  } else {
+    fac = HALF_INV_PI;
+  }
+  return V3{tput.x * alb.x * ls.weight.x * fac, tput.y * alb.y * ls.weight.y * fac,
+            tput.z * alb.z * ls.weight.z * fac};
 }
 
 // Bounce ph.depth of the path: its hit, emission, light sample and scatter.
 // Returns whether the path has ended (a miss, an emitter, or the last
 // depth). Adds to the work counters cnt: [0] bounces and, with NEE or
 // PHYSICAL, [1] light samples, [2] unoccluded shadow rays (each swept every
-// other shape), [3] MIS reverse densities, [4] glossy lobe evaluations. The
-// geometry policy `g` finds the hits and may count its own work behind these.
+// other shape), [3] MIS reverse densities, [4] glossy lobe evaluations whose
+// result counts (a deferred shadow ray's lobe only if it came through), and
+// the cycles of each phase, [CLK_NEAREST, CLK_MIS]. The geometry policy `g`
+// finds the hits and may count its own work behind these.
+//
+// A policy with DEFER_SHADOW sweeps a light sample's shadow ray at the next
+// bounce, together with that bounce's ray: both start at this vertex's p on
+// `best`. That bounce always comes, since light samples are drawn only below
+// max_depth, and it adds the carried radiance before anything of its own, so
+// the radiance is added in the same order as where the shadow ray is swept
+// at once.
 template <bool NEE, bool PHYSICAL, class G, class C>
 __device__ __forceinline__ bool bounce(const G& g, Path& ph, const uint32_t* row, uint32_t root, int max_depth,
                                        C& cnt) {
+  constexpr bool DEFER = NEE && G::DEFER_SHADOW;
+  long long clk = cnt.now();
   const int depth = ph.depth;
   const V3 d = ph.d;
   cnt.add(0, 1u);
@@ -722,7 +912,25 @@ __device__ __forceinline__ bool bounce(const G& g, Path& ph, const uint32_t* row
     inv_a = 1.0f / a;
   }
   Hit h;
-  if (!g.nearest(ph.o, d, a, inv_a, ph.prev, &h, cnt)) {  // miss: background (scene.rs:168)
+  bool hit;
+  if constexpr (DEFER) {
+    bool occ = false;
+    hit = g.nearest_shadow(ph.o, d, a, inv_a, ph.prev, ph.sh, &occ, &h, cnt);
+    if (ph.sh.exclude >= 0) {  // the last vertex's light sample, first
+      if (!occ) {
+        cnt.add(2, 1u);
+        if (ph.sh_lobe) cnt.add(4, 1u);
+        ph.rad.x = ph.rad.x + ph.sh_rad.x;
+        ph.rad.y = ph.rad.y + ph.sh_rad.y;
+        ph.rad.z = ph.rad.z + ph.sh_rad.z;
+      }
+      ph.sh.exclude = -1;
+    }
+  } else {
+    hit = g.nearest(ph.o, d, a, inv_a, ph.prev, &h, cnt);
+  }
+  cnt.lap(CLK_NEAREST, clk);
+  if (!hit) {  // miss: background (scene.rs:168)
     ph.rad.x = ph.rad.x + ph.tput.x * c_scene.bg[0];
     ph.rad.y = ph.rad.y + ph.tput.y * c_scene.bg[1];
     ph.rad.z = ph.rad.z + ph.tput.z * c_scene.bg[2];
@@ -749,6 +957,7 @@ __device__ __forceinline__ bool bounce(const G& g, Path& ph, const uint32_t* row
         ph.rad.x = ph.rad.x + tput.x * alb.x * emit_w;
         ph.rad.y = ph.rad.y + tput.y * alb.y * emit_w;
         ph.rad.z = ph.rad.z + tput.z * alb.z * emit_w;
+        cnt.lap(CLK_MIS, clk);
       }
     } else {
       bool emit = facing;
@@ -798,30 +1007,26 @@ __device__ __forceinline__ bool bounce(const G& g, Path& ph, const uint32_t* row
           t_sh = t_l * TRI_SHADOW_SHRINK;
         }
       }
-      if (l_valid && cos_s > 0.0f && !g.occluded(p, ls.d, a_sh, inv_a_sh, t_sh, ls.sidx, best, cnt)) {
-        cnt.add(2, 1u);
-        float fac;
-        if constexpr (PHYSICAL) {
-          // True Lambertian / normalized Phong f·cos, balance-weighted
-          // against the vertex's own BSDF density.
-          float pdf_b, f_fac;
-          if (glossy) {
-            cnt.add(4, 1u);
-            float phong_l, dup_l;
-            glossy_lobe(r, n, h.exponent, ls.d, &phong_l, &pdf_b, &dup_l);
-            f_fac = (h.exponent + 2.0f) * HALF_INV_PI * phong_l;
-          } else {
-            pdf_b = cos_s * INV_PI;
-            f_fac = INV_PI;
-          }
-          const float w_nee = ls.pdf / fmaxf(ls.pdf + pdf_b, EPS_20);
-          fac = f_fac * cos_s * w_nee;
+      cnt.lap(CLK_LIGHT, clk);
+      if (l_valid && cos_s > 0.0f) {
+        if constexpr (DEFER) {
+          ph.sh = Shadow{ls.d, t_sh, ls.sidx};
+          ph.sh_rad = nee_radiance<PHYSICAL>(tput, alb, ls, cos_s, glossy, r, n, h.exponent);
+          ph.sh_lobe = PHYSICAL && glossy;
+          cnt.lap(CLK_MIS, clk);
         } else {
-          fac = HALF_INV_PI;  // the reference's cosine-free matte: Ω/(2π)
+          const bool occ = g.occluded(p, ls.d, a_sh, inv_a_sh, t_sh, ls.sidx, best, cnt);
+          cnt.lap(CLK_SHADOW, clk);
+          if (!occ) {
+            cnt.add(2, 1u);
+            if (PHYSICAL && glossy) cnt.add(4, 1u);
+            const V3 c = nee_radiance<PHYSICAL>(tput, alb, ls, cos_s, glossy, r, n, h.exponent);
+            ph.rad.x = ph.rad.x + c.x;
+            ph.rad.y = ph.rad.y + c.y;
+            ph.rad.z = ph.rad.z + c.z;
+            cnt.lap(CLK_MIS, clk);
+          }
         }
-        ph.rad.x = ph.rad.x + tput.x * alb.x * ls.weight.x * fac;
-        ph.rad.y = ph.rad.y + tput.y * alb.y * ls.weight.y * fac;
-        ph.rad.z = ph.rad.z + tput.z * alb.z * ls.weight.z * fac;
       }
     }
     ph.suppress = diffuse;
@@ -856,10 +1061,12 @@ __device__ __forceinline__ bool bounce(const G& g, Path& ph, const uint32_t* row
     float tput_fac = 1.0f, pdf_gi = 0.0f;
     if (glossy) {
       cnt.add(4, 1u);
+      cnt.lap(CLK_SCATTER, clk);
       const float e = h.exponent;
       float phong_i, dup_i;
       glossy_lobe(r, n, e, wi, &phong_i, &pdf_gi, &dup_i);
       tput_fac = (e + 2.0f) / (e + 1.0f) * cos_i / (1.0f + dup_i);
+      cnt.lap(CLK_MIS, clk);
     }
     ph.tput = V3{tput.x * alb.x * tput_fac, tput.y * alb.y * tput_fac, tput.z * alb.z * tput_fac};
     if constexpr (NEE) {
@@ -873,6 +1080,7 @@ __device__ __forceinline__ bool bounce(const G& g, Path& ph, const uint32_t* row
   ph.d = wi;
   ph.prev = best;
   ph.depth = depth + 1;
+  cnt.lap(CLK_SCATTER, clk);
   return depth >= max_depth;
 }
 

@@ -1,7 +1,8 @@
 // A stand-in for <cuda_runtime.h> that lets a C++ compiler without CUDA
 // compile flux_trace.cuh's device functions as host code:
 //   g++ -std=c++17 -O2 -ffp-contract=off -I flux_tpu_torch/csrc/host ...
-// tests/test_torch_trace_host.py checks the sampler path with it. It
+// tests/test_torch_trace_host.py checks the sampler path with it,
+// tests/test_torch_nee_host.py the sweep of a scatter and a shadow ray. It
 // defines only what the header uses; nothing here runs on a card.
 #pragma once
 
@@ -54,3 +55,5 @@ inline T __ldg(const T* p) {
 }
 
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+
+inline long long clock64() { return 0; }

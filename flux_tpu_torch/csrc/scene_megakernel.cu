@@ -77,19 +77,19 @@
 #define FLUX_TRI_BLOCK 16
 #define FLUX_SUPER 8  // blocks under one second-level box
 
-// Work counters behind the tracer's five (per pixel, summed over samples):
+// Work counters behind the tracer's ten (per pixel, summed over samples):
 // sphere blocks a ray had to enter (its box entered at or before the final
 // hit; for a shadow ray the blocks entered if it came through, one if a
 // sphere stopped it), sphere blocks entered, sphere box tests made, the same
 // three for triangle blocks, and shadow folds started.
-#define CNT_SPH_NEEDED 5
-#define CNT_SPH_ENTERED 6
-#define CNT_SPH_TESTS 7
-#define CNT_TRI_NEEDED 8
-#define CNT_TRI_ENTERED 9
-#define CNT_TRI_TESTS 10
-#define CNT_SHADOW_FOLDS 11
-#define FLUX_SCENE_N_COUNTS 12
+#define CNT_SPH_NEEDED (FLUX_N_COUNTS + 0)
+#define CNT_SPH_ENTERED (FLUX_N_COUNTS + 1)
+#define CNT_SPH_TESTS (FLUX_N_COUNTS + 2)
+#define CNT_TRI_NEEDED (FLUX_N_COUNTS + 3)
+#define CNT_TRI_ENTERED (FLUX_N_COUNTS + 4)
+#define CNT_TRI_TESTS (FLUX_N_COUNTS + 5)
+#define CNT_SHADOW_FOLDS (FLUX_N_COUNTS + 6)
+#define FLUX_SCENE_N_COUNTS (FLUX_N_COUNTS + 7)
 
 // Launch parameters, passed by value; mirrored by FluxGeom in
 // flux_tpu_torch/ops/scene_kernel.py. Every pointer is device memory.
@@ -259,6 +259,9 @@ struct TableLights {
 struct SceneGeom {
   typedef TableLights Lights;
   static constexpr int N_COUNTS = FLUX_SCENE_N_COUNTS;
+  // A shadow ray is folded where it is drawn: its walk skips other blocks
+  // than the scatter ray's, and stops at its first occluder.
+  static constexpr bool DEFER_SHADOW = false;
   const FluxGeom* P;
   ShapeRows* rows;  // c_scene's spheres (sweep mode) and planes
 

@@ -19,7 +19,7 @@
 //   K3 NEE      next-event estimation over sphere lights: power-
 //               proportional light pick, partial-cone sampling with the
 //               conservative arc, the light's exact ray-t, an any-hit
-//               shadow fold, the suppress flag and the final-depth gate
+//               shadow test, the suppress flag and the final-depth gate
 //               (:764-789; ops/shade.py:186-298; ops/nee.py);
 //   K4 PHYSICAL cosine-weighted matte, normalized Phong over the
 //               flip-corrected lobe density, and with NEE the balance-
@@ -58,8 +58,20 @@
 //     prev_normal) stays in registers, and a thread leaves its bounce loop
 //     when its path dies: early exit per lane, without any scratch. Light
 //     samples are drawn only where they can count (matte vertices, glossy
-//     ones under PHYSICAL, below the final depth), and the shadow fold
-//     stops at the first occluder.
+//     ones under PHYSICAL, below the final depth).
+//   * A light sample's shadow ray is not swept where it is drawn. It is
+//     carried to the next bounce (which always comes, below the final
+//     depth), and that bounce's loop over the shapes tests it beside its
+//     own ray from the same point: each shape's constants are read once and
+//     its origin terms computed once for both rays, and the lanes of a warp
+//     do not split into a second loop. What the light adds is added before
+//     anything of the next bounce, so the sums keep their order and bits.
+//   * The NEE instantiations are held to 64 registers, four blocks an SM,
+//     at the price of some spills: with the carried shadow ray they take
+//     88-90 registers left free (two blocks an SM), and four blocks with
+//     the spills were the faster on an NVIDIA H100 80GB HBM3 at 700 W
+//     (chip_smoke.py phase 15; PERF.md). The cone sample takes its cos and
+//     sin from one sincosf, one range reduction.
 //   * The work counters exist only in the counting instantiations; a timed
 //     launch carries none.
 //   * Radiance (and Σ luminance²) is summed per pixel in a fixed order (each
@@ -136,11 +148,13 @@ struct ConstLights {
 
 // The sweep (intersect.intersect, intersect.occluded_sweep): every sphere,
 // then every plane, of the __constant__ scene record; the hit's rows from
-// shared memory.
+// shared memory. A light sample's shadow ray is swept at the next bounce,
+// in the same loop as that bounce's ray (nearest_shadow).
 template <bool NEE>
 struct SweepGeom {
   typedef ConstLights Lights;
   static constexpr int N_COUNTS = FLUX_N_COUNTS;
+  static constexpr bool DEFER_SHADOW = true;
   ShapeRows* rows;
   LightRows* lrows;
 
@@ -151,51 +165,54 @@ struct SweepGeom {
   __device__ __forceinline__ ConstLights lights() const { return ConstLights{lrows}; }
   __device__ __forceinline__ int light_of(int shape) const { return lrows->light_of[shape]; }
 
-  // Nearest hit, ties to the lowest index (strict < in order).
-  template <class C>
-  __device__ __forceinline__ bool nearest(V3 o, V3 d, float a, float inv_a, int prev, Hit* h, C&) const {
-    const int ns = c_scene.n_spheres;
-    const int npl = c_scene.n_planes;
-    float best_t = __int_as_float(0x7f800000);  // +inf
-    int best = 0;
-    sweep_spheres_nearest(o, d, a, inv_a, prev, &best_t, &best);
-    for (int j = 0; j < npl; ++j) {
-      const float t = plane_t(o, d, j);
-      if (t > T_MIN && prev != ns + j && t < best_t) {
-        best_t = t;
-        best = ns + j;
-      }
-    }
+  // The hit of shape `best` at best_t (none if best_t is +inf).
+  __device__ __forceinline__ bool hit_at(V3 o, V3 d, float best_t, int best, Hit* h) const {
     if (!isfinite(best_t)) return false;
     const V3 p = V3{o.x + best_t * d.x, o.y + best_t * d.y, o.z + best_t * d.z};
     h->t = best_t;
     h->shape = best;
     h->p = p;
-    hit_from_rows(rows, best, best < ns, p, h);
+    hit_from_rows(rows, best, best < c_scene.n_spheres, p, h);
     return true;
   }
 
-  // Any-hit shadow test: does a shape other than `exclude` cross (o, d) at
-  // T_MIN < t < t_max? The ray starts on `origin`. Stops at the first
-  // occluder.
+  // Nearest hit, ties to the lowest index (strict < in order).
   template <class C>
-  __device__ __forceinline__ bool occluded(V3 o, V3 d, float a, float inv_a, float t_max,
-                                           int exclude, int origin, C&) const {
-    const int ns = c_scene.n_spheres;
-    if (sweep_spheres_occluded(o, d, a, inv_a, t_max, exclude, origin)) return true;
-    for (int j = 0; j < c_scene.n_planes; ++j) {
-      if (ns + j == exclude || ns + j == origin) continue;
-      const float t = plane_t(o, d, j);
-      if (t > T_MIN && t < t_max) return true;
+  __device__ __forceinline__ bool nearest(V3 o, V3 d, float a, float inv_a, int prev, Hit* h, C&) const {
+    float best_t;
+    int best;
+    sweep_nearest(o, d, a, inv_a, prev, &best_t, &best);
+    return hit_at(o, d, best_t, best, h);
+  }
+
+  // The nearest hit as above, and in *occ whether the carried shadow ray
+  // `sh` (from o on prev too; none if sh.exclude < 0) is occluded, as
+  // occluded() would find it; one loop over the shapes for both rays.
+  template <class C>
+  __device__ __forceinline__ bool nearest_shadow(V3 o, V3 d, float a, float inv_a, int prev, const Shadow& sh,
+                                                 bool* occ, Hit* h, C&) const {
+    float as = 1.0f, inv_as = 1.0f;
+    if (!c_scene.unit_d) {
+      as = dot3(sh.d, sh.d);
+      inv_as = 1.0f / as;
     }
-    return false;
+    float best_t;
+    int best;
+    sweep_nearest_shadow(o, d, a, inv_a, prev, sh.d, as, inv_as, sh.t_max, sh.exclude, sh.exclude >= 0, &best_t,
+                         &best, occ);
+    return hit_at(o, d, best_t, best, h);
   }
 };
 
 // ---- the kernel ----------------------------------------------------------
 
+// Blocks an SM must hold of an NEE instantiation: ptxas then keeps it to
+// 65536 / (256 · 4) = 64 registers. The others take what they need (59-62
+// registers, four blocks an SM).
+#define FLUX_SWEEP_NEE_MIN_BLOCKS 4
+
 template <bool STATS, bool NEE, bool PHYSICAL, bool COUNT>
-__global__ void __launch_bounds__(FLUX_BLOCK_THREADS)
+__global__ void __launch_bounds__(FLUX_BLOCK_THREADS, NEE ? FLUX_SWEEP_NEE_MIN_BLOCKS : 1)
 sweep_megakernel(float* __restrict__ out, uint32_t* __restrict__ counts, int n_pix,
                  int img_w, int img_h, int row0, int row_stride, uint32_t s0,
                  uint32_t n_samples, unsigned long long s_limit, uint32_t seed, uint32_t root,

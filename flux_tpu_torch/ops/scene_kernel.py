@@ -42,6 +42,7 @@ from ..scene import SceneTensors
 from . import build
 from .intersect import SCAN_BLOCK, TRI_SCAN_BLOCK, Intersector, ScanLayout, TriLayout
 from .nee import LightTensors
+from .sweep_kernel import COUNT_NAMES as TRACER_COUNT_NAMES
 from .sweep_kernel import FluxScene, check_launch, pack_scene, plan_launch
 
 __all__ = [
@@ -62,9 +63,9 @@ __all__ = [
 ]
 
 SUPER = 8  # blocks under one second-level box
-# The kernel's work counters per pixel, in order (see the source).
-COUNT_NAMES = (
-    "bounces", "light_samples", "shadow_rays", "reverse_densities", "glossy_lobes",
+# The kernel's counters per pixel, in order (see the source): the tracer's
+# (work, then the cycles of each phase of a bounce), then the geometry's.
+COUNT_NAMES = TRACER_COUNT_NAMES + (
     "sphere_blocks_needed", "sphere_blocks_entered", "sphere_box_tests",
     "tri_blocks_needed", "tri_blocks_entered", "tri_box_tests", "shadow_folds",
 )

@@ -42,6 +42,8 @@ __all__ = [
     "pack_lights",
     "config_name",
     "n_counts",
+    "COUNT_NAMES",
+    "declare",
     "MAX_SPHERES",
     "MAX_PLANES",
     "MAX_DEPTH",
@@ -54,7 +56,15 @@ MAX_SPHERES = 64
 MAX_PLANES = 16
 MAX_SHAPES = MAX_SPHERES + MAX_PLANES
 MAX_LIGHTS = MAX_SPHERES  # every sphere light is a sweep sphere
-N_COUNTS = 5  # work counters per pixel with NEE or physical (else 1)
+# The kernel's counters per pixel with NEE or physical (else bounces only),
+# in order: work, then the clock64 cycles of each phase of a bounce (see
+# csrc/flux_trace.cuh; 32-bit sums that wrap after 2^32 cycles).
+COUNT_NAMES = (
+    "bounces", "light_samples", "shadow_rays", "reverse_densities", "glossy_lobes",
+    "clk_nearest", "clk_light", "clk_shadow", "clk_scatter", "clk_mis",
+)
+N_COUNTS = len(COUNT_NAMES)
+N_WORK = 5  # the work counters among them
 MAX_DEPTH = 32  # the deepest path the kernels' sampler rows hold (FLUX_MAX_DEPTH)
 BLOCK_THREADS = 256  # threads of a block (FLUX_BLOCK_THREADS)
 SPLITS = (8, 16, 32)  # threads per pixel a launch may take
@@ -180,7 +190,21 @@ def pack_scene(scene: SceneTensors, cam: CameraTensors, *, spheres: bool = True)
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
-    lib = build.load(_SOURCE)
+    lib = declare(build.load(_SOURCE))
+    if (
+        lib.flux_sweep_scene_bytes() != ctypes.sizeof(FluxScene)
+        or lib.flux_sweep_max_depth() != MAX_DEPTH
+        or lib.flux_sweep_lights_bytes() != ctypes.sizeof(FluxLights)
+        or lib.flux_sweep_n_counts() != N_COUNTS
+        or lib.flux_sweep_max_spheres() != MAX_SPHERES
+        or lib.flux_sweep_max_planes() != MAX_PLANES
+    ):
+        raise RuntimeError("FluxScene/FluxLights layout differs between Python and CUDA")
+    return lib
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C signatures of a loaded sweep kernel library."""
     lib.flux_sweep_scene_bytes.restype = ctypes.c_size_t
     lib.flux_sweep_scene_bytes.argtypes = []
     lib.flux_sweep_lights_bytes.restype = ctypes.c_size_t
@@ -219,15 +243,6 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int,  # split
         ctypes.c_void_p,  # stream
     ]
-    if (
-        lib.flux_sweep_scene_bytes() != ctypes.sizeof(FluxScene)
-        or lib.flux_sweep_max_depth() != MAX_DEPTH
-        or lib.flux_sweep_lights_bytes() != ctypes.sizeof(FluxLights)
-        or lib.flux_sweep_n_counts() != N_COUNTS
-        or lib.flux_sweep_max_spheres() != MAX_SPHERES
-        or lib.flux_sweep_max_planes() != MAX_PLANES
-    ):
-        raise RuntimeError("FluxScene/FluxLights layout differs between Python and CUDA")
     return lib
 
 
@@ -301,9 +316,10 @@ def check_launch(n_pix: int, n_samples: int, root: int, max_depth: int, with_sta
 
 
 def n_counts(nee: bool, physical: bool) -> int:
-    """Work counters per pixel of an instantiation: bounces only for K1 and
-    K2; with NEE or physical also light samples, unoccluded shadow rays,
-    MIS reverse densities and glossy lobe evaluations."""
+    """Counters per pixel of an instantiation: bounces only for K1 and K2;
+    with NEE or physical also light samples, unoccluded shadow rays, MIS
+    reverse densities, glossy lobe evaluations and the cycles of each phase
+    of a bounce (``COUNT_NAMES``)."""
     return N_COUNTS if (nee or physical) else 1
 
 
@@ -331,10 +347,10 @@ def render_block_sweep(
     ``row0 + k·row_stride``, ``(n_rows, img_w, 3)`` float32 on the scene's
     device (``(n_rows, img_w, 4)`` with ``with_stats``). On the card,
     ``bounce_counts`` (optional contiguous int32 tensor) receives each
-    pixel's work counters summed over its samples: shape ``(n_rows·img_w,)``
+    pixel's counters summed over its samples: shape ``(n_rows·img_w,)``
     (bounces) for K1 and K2, ``(N_COUNTS, n_rows·img_w)`` with ``lights`` or
-    ``physical`` (row 0 bounces; see :func:`flops_lower_bound`), from the
-    counting instantiation, without ``with_stats``. The launch's
+    ``physical`` (rows by ``COUNT_NAMES``; see :func:`flops_lower_bound`),
+    from the counting instantiation, without ``with_stats``. The launch's
     :class:`LaunchPlan` is kept as ``render_block_sweep.last_plan``."""
     dev = scene.device
     if scene.num_triangles:
@@ -412,6 +428,11 @@ _OPS_PER_SAMPLE = 88  # CMJ AA + lens points, disc warp, thin-lens ray, sum
 _OPS_PER_SAMPLE_STATS = 7  # luminance, its square, the sum
 _OPS_PER_SPHERE_TEST = 20
 _OPS_PER_PLANE_TEST = 14
+# Of these, what depends on the ray's origin alone (o - c and c of a sphere,
+# the numerator of a plane): a shadow ray swept beside the next bounce's ray
+# from the same point shares it.
+_OPS_PER_SPHERE_ORIGIN = 10
+_OPS_PER_PLANE_ORIGIN = 8
 _OPS_PER_BOUNCE = 6  # hit point, or the background add on a miss
 _OPS_PER_SCATTER_WARPED = 81  # reflect, bounce point, hemisphere warp, frame, throughput
 _OPS_PER_SCATTER_MIRROR = 15  # reflect and throughput only
@@ -444,16 +465,18 @@ def flops_lower_bound(
     At least ``n_bounces - n_samples`` bounces scattered, since each
     sample's last bounce ends it or hits the depth cap; each is charged the
     cheapest scatter the scene's materials allow. An unoccluded shadow ray
-    swept every sphere but its light and every plane but its origin's; an
-    occluded one is charged nothing beyond its light sample."""
+    swept every sphere but its light and every plane but its origin's, in
+    the loop of the next bounce's ray from the same point, whose origin
+    terms it shares; an occluded one is charged nothing beyond its light
+    sample."""
     per_test = scene.num_spheres * _OPS_PER_SPHERE_TEST + scene.num_planes * _OPS_PER_PLANE_TEST
     mirror = bool((scene.host["mat_kind"] == MaterialKind.REFLECTIVE).any())
     scatter = _OPS_PER_SCATTER_MIRROR if mirror else _OPS_PER_SCATTER_WARPED
     if physical:
         scatter += _OPS_PER_SCATTER_PHYSICAL
     shadow_sweep = (
-        max(scene.num_spheres - 1, 0) * _OPS_PER_SPHERE_TEST
-        + max(scene.num_planes - 1, 0) * _OPS_PER_PLANE_TEST
+        max(scene.num_spheres - 1, 0) * (_OPS_PER_SPHERE_TEST - _OPS_PER_SPHERE_ORIGIN)
+        + max(scene.num_planes - 1, 0) * (_OPS_PER_PLANE_TEST - _OPS_PER_PLANE_ORIGIN)
     )
     contrib = _OPS_PER_SHADOW_CONTRIB + (_OPS_PER_SHADOW_CONTRIB_MIS if physical else 0)
     return (

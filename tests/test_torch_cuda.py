@@ -22,7 +22,7 @@ from flux_tpu_torch.ops import scene_kernel
 from flux_tpu_torch.ops.intersect import Intersector, scan_layout, tri_layout
 from flux_tpu_torch.ops.nee import extract_lights
 from flux_tpu_torch.ops.scene_kernel import render_block_scene
-from flux_tpu_torch.ops.sweep_kernel import config_name, render_block_sweep
+from flux_tpu_torch.ops.sweep_kernel import N_COUNTS, N_WORK, config_name, render_block_sweep
 from flux_tpu_torch.render import Renderer, finalize, render_block
 from flux_tpu_torch.scene import (
     CameraData,
@@ -262,3 +262,106 @@ def test_scene_kernel_work_counts(card):
     c2 = dict(zip(scene_kernel.COUNT_NAMES, counts.to(torch.int64).sum(dim=1).tolist()))
     assert c2["bounces"] == c["bounces"] and c2["sphere_box_tests"] == 0
     assert c2["sphere_blocks_entered"] >= c2["bounces"] * isect.layout.n_blocks
+
+
+# The NEE instantiations at their paths' launches, cut to 8 rows: (scene,
+# physical, stats, n_samples, root).
+NEE_LAUNCHES = [
+    ("demo2", False, False, 256, 16),
+    ("demo2", False, True, 32, 8),
+    ("demo3", True, False, 16, 4),
+    ("demo3", True, True, 64, 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, physical, stats, n_samples, root", NEE_LAUNCHES)
+def test_nee_kernels_bitwise_stable(card, name, physical, stats, n_samples, root):
+    """The sweep megakernel carries a light sample's shadow ray to the next
+    bounce and sweeps it there with that bounce's ray. Each NEE
+    instantiation gives the same bits from launch to launch; the stats and
+    the counting instantiations give the same radiance bits as the plain
+    timed one; and the scene megakernel's scan, which sweeps each shadow
+    ray where it is drawn, gives the same bits too."""
+    sd = load_scene(os.path.join(SCENES, f"{name}.yml"))
+    sc, cam = _scene(card, name)
+    lights = extract_lights(sd, card)
+    kw = dict(img_w=800, img_h=600, n_rows=8, n_samples=n_samples, root=root, max_depth=5, lights=lights,
+              physical=physical)
+    k = render_block_sweep(sc, cam, 296, 0, 0, with_stats=stats, **kw)
+    for _ in range(3):
+        again = render_block_sweep(sc, cam, 296, 0, 0, with_stats=stats, **kw)
+        assert torch.equal(k.view(torch.int32), again.view(torch.int32))
+    plain_timed = render_block_sweep(sc, cam, 296, 0, 0, **kw) if stats else k
+    counts = torch.zeros((N_COUNTS, 8 * 800), dtype=torch.int32, device=card)
+    counted = render_block_sweep(sc, cam, 296, 0, 0, bounce_counts=counts, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k[..., :3].contiguous().view(torch.int32), plain_timed.view(torch.int32))
+    assert torch.equal(counted.view(torch.int32), plain_timed.view(torch.int32))
+    c = counts.to(torch.int64)
+    assert (c[2] <= c[1]).all() and c[1].sum() > 0 and c[2].sum() > 0  # unoccluded <= light samples
+    assert not ((c[0] > 0) & ((c[N_WORK:] & 0xFFFFFFFF).sum(dim=0) == 0)).any()  # clocks wherever it bounced
+    isect = Intersector(layout=scan_layout(sc), mode="scan")
+    scan = render_block_scene(sc, cam, 296, 0, 0, isect=isect, with_stats=stats, **kw)
+    assert torch.equal(k.view(torch.int32), scan.view(torch.int32))
+
+
+SINCOS_CU = r"""
+#include <cstdint>
+// One function a kernel, so that the compiler cannot join the cosf and the
+// sinf of one argument into one sincosf of its own.
+__global__ void both(const float* x, uint32_t* c, uint32_t* s, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float sv, cv;
+  sincosf(x[i], &sv, &cv);
+  c[i] = __float_as_uint(cv);
+  s[i] = __float_as_uint(sv);
+}
+__global__ void cos_only(const float* x, uint32_t* c, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) c[i] = __float_as_uint(cosf(x[i]));
+}
+__global__ void sin_only(const float* x, uint32_t* s, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) s[i] = __float_as_uint(sinf(x[i]));
+}
+extern "C" int run(const float* x, uint32_t* out, int n) {
+  const int b = (n + 255) / 256;
+  both<<<b, 256>>>(x, out, out + n, n);
+  cos_only<<<b, 256>>>(x, out + 2 * n, n);
+  sin_only<<<b, 256>>>(x, out + 3 * n, n);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.mark.cuda
+def test_device_sincosf_matches_cosf_and_sinf(card, tmp_path):
+    """The cone sample takes its cos and sin of δ, |δ| <= π, from one
+    sincosf. Built with the kernels' own flags, the card's sincosf gives
+    the bits of its cosf and its sinf, each in a kernel of its own."""
+    import ctypes
+    import subprocess
+
+    import numpy as np
+
+    from flux_tpu_torch.ops import build
+
+    src, lib = tmp_path / "sincos.cu", tmp_path / "libsincos.so"
+    src.write_text(SINCOS_CU)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True, capture_output=True,
+                   timeout=300)
+    run = ctypes.CDLL(str(lib)).run
+    run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    pi = np.float32(np.pi)
+    x = np.concatenate([
+        np.linspace(-np.pi, np.pi, 400001).astype(np.float32),
+        np.array([0.0, -0.0, 1e-30, -1e-30, 1e-38, pi, -pi, np.nextafter(pi, np.float32(0)), pi / 2, pi / 4],
+                 np.float32),
+    ])
+    xs = torch.from_numpy(x).to(card)
+    out = torch.zeros((4, len(x)), dtype=torch.int32, device=card)
+    assert run(xs.data_ptr(), out.data_ptr(), len(x)) == 0
+    out = out.cpu()
+    assert torch.equal(out[0], out[2]) and torch.equal(out[1], out[3])
