@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``flux_tpu_torch``) on one CUDA card.
 
 Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``
-(``--parent DIR``: see phase 15).
+(``--parent DIR``: see phase 16).
 It needs one Hopper card (the kernels are built for ``sm_90a``), ``nvcc``
 and PyTorch built for CUDA; it imports neither JAX nor ``flux_tpu``.
 
@@ -12,8 +12,9 @@ Phases, in order; any failure exits non-zero before the result line:
    limit as ``nvidia-smi`` reports them;
 2. build: compiles ``flux_tpu_torch/csrc/sweep_megakernel.cu`` and
    ``scene_megakernel.cu`` (every instantiation of both templates) with
-   nvcc, and phase 15's variants of the first, all at once, and prints the
-   build seconds and the compiler's register report for each;
+   nvcc, and phase 15's variants of the second (and with ``--parent`` the
+   other checkout's two sources), all at once, and prints the build seconds
+   and the compiler's register report for each;
 3. kernel vs plain: demo2 at its full 800 width, an 8-row band, root 4,
    depth 5, seed 42, through the kernel and through its plain PyTorch
    version on the card; two kernel launches must be bitwise equal, and
@@ -71,7 +72,11 @@ Phases, in order; any failure exits non-zero before the result line:
    sample ranges add up; the same launch with the AABB skip off, and with
    one level of boxes, must be bitwise equal; prints the share of blocks
    entered; then the scan against the sweep megakernel, bitwise, on whole
-   frames of ``sphere_field(24)`` and ``sphere_field(40)``;
+   frames of ``sphere_field(24)`` and ``sphere_field(40)``; then the scenes
+   past the sweep megakernel's caps through the Renderer, against the plain
+   version: 20 planes (demo2 and ``genscene.plane_ring``) in sweep and scan
+   mode, and 101 spheres with ``accel="sweep"`` (it takes the scan; bitwise
+   equal to ``accel="scan"``); the 20-plane scene also in the list above;
 11. the slice's paths, each with the launch counts set to 0 just before and
    read just after: ``cli scenes/spheres512.yml -r 8 -d 5`` (the scan picked
    by itself; against the JAX package's frame, artifacts/spheres512_64spp.png),
@@ -85,9 +90,11 @@ Phases, in order; any failure exits non-zero before the result line:
    resumed from a checkpoint bitwise); the 96-sphere field at 80x60 on the
    card against tests/golden_field96_80x60_r4_s42.npy;
 12. one band of ``sphere_field(16384)`` at 800x600, 16 spp: ms per launch
-   with the skip, with one level of boxes and without the skip (bitwise
-   equal), the blocks entered per fold, and the band's first row against
-   the plain version;
+   with the tree of boxes, with one level of boxes and without the skip
+   (bitwise equal), the blocks entered per fold, and the band's first row
+   against the plain version; then the sweep megakernel against the scan on
+   50-row bands of fields of 16, 32, 48 and 64 spheres at 64 spp, in turns,
+   bitwise (``render.SCAN_AUTO_THRESHOLD``);
 13. measurement of each scene-megakernel configuration at its path's launch
    shape (timed as in phase 6) beside its operation bound from the
    kernel's work counters, the plain version's time on the launch's first
@@ -100,20 +107,28 @@ Phases, in order; any failure exits non-zero before the result line:
    row as the last wave empties), and the triangle skip on and off on
    meshes of 2 to 80 triangle blocks and on the Cornell box, bitwise equal,
    beside the rule ``scene_kernel.TRI_SKIP_ENGAGE``;
-15. the NEE arm of the sweep megakernel, step by step, on the K3 launch (a
-   demo2 50-row band at 1024 spp) and the MIS + stats launch (a demo3
-   128-row band at 64 spp): the sources are built again with design steps
-   undone by text edits (in phase 2, beside the two libraries; a variant
-   whose edit no longer applies is left out, and said so), and the phase
-   prints each build's registers, spills and stack frame, the local
-   memory and calls in the SASS, the clock split of a bounce from the
-   counting launch with all the steps undone and with none, every
-   variant's time on both launches in turns with its bits against the one
-   with all steps undone, and the final sources' time at each split of the
-   launch plan. With ``--parent DIR`` (the root of another checkout, such
-   as the parent commit's, unpacked by ``git archive``), phase 2 also
-   builds that checkout's sweep source, and phase 15 times it beside the
-   current build on every row of phases 6 and 9, in turns, bitwise.
+15. the scan, step by step, on its launches (K5, K5 + K3 and K5 + K2 as
+   phase 13 makes them, and phase 12's band): the scene source is built
+   again with design steps undone by text edits (in phase 2, beside the two
+   libraries; a variant whose edit no longer applies is left out, and said
+   so): the parent's two levels of boxes in table order; a tree over the
+   blocks walked by the warp as one, its children in table order and the
+   nearer child first; the tree down to runs of 16 spheres (the sources as
+   they are), and that tree walked by each lane alone, with the walks
+   compiled as functions of their own, with both children of a node tested
+   together, and with nearest folds on the parent's walk. The phase prints each build's registers, spills and
+   stack frame; from each variant's counting launch, per nearest and per
+   shadow fold, the sphere blocks and tree leaves a perfect skip needs, the
+   units entered, the spheres tested and the box tests, and the clock64
+   cycles of the walk's box tests and folds beside those of the bounce's
+   phases; then every variant, and the final build with one level of boxes
+   and with the skip off, timed in turns with its bits against the final
+   build's;
+16. with ``--parent DIR`` (the root of another checkout, such as the parent
+   commit's, unpacked by ``git archive``): that checkout's package, imported
+   under another name and built in phase 2, and this one render every row
+   of phases 6, 9 and 13 and phase 12's band through a Renderer each, in
+   turns (parent, new, new, parent), bitwise.
 
 Every phase prints its wall seconds. It ends with a ``{"kernels": [...]}``
 line (one entry per instantiation and configuration) and then the result
@@ -123,6 +138,7 @@ line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import hashlib
@@ -143,7 +159,7 @@ from flux_tpu_torch import genscene, meshgen
 from flux_tpu_torch.cli import run as cli_run
 from flux_tpu_torch.image import read_ppm
 from flux_tpu_torch.ops import build, scene_kernel
-from flux_tpu_torch.ops.intersect import Intersector, scan_layout, tri_layout
+from flux_tpu_torch.ops.intersect import SCAN_BLOCK, Intersector, scan_layout, tri_layout
 from flux_tpu_torch.ops.nee import extract_lights
 from flux_tpu_torch.ops.scene_kernel import render_block_scene
 from flux_tpu_torch.ops import sweep_kernel
@@ -152,9 +168,7 @@ from flux_tpu_torch.ops.sweep_kernel import (
     FluxScene,
     config_name,
     flops_lower_bound,
-    launch_plan,
     n_counts,
-    pack_lights,
     pack_scene,
     render_block_sweep,
 )
@@ -406,10 +420,6 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
         scene, samples, work[0], with_stats=stats, physical=physical, light_samples=work[1],
         shadow_rays=work[2], reverse_densities=work[3], glossy_lobes=work[4],
     )
-    # The bound as it stood while shadow rays were swept alone: they also
-    # paid the origin terms they now share with the next bounce's ray.
-    shared = work[2] * (max(scene.num_spheres - 1, 0) * sweep_kernel._OPS_PER_SPHERE_ORIGIN
-                        + max(scene.num_planes - 1, 0) * sweep_kernel._OPS_PER_PLANE_ORIGIN)
     # Radiance (and Σ lum²) out; the scene and light constants in.
     bytes_moved = (4 if stats else 3) * n_pix * 4 + ctypes.sizeof(FluxScene) + (
         ctypes.sizeof(FluxLights) if nee else 0)
@@ -452,7 +462,6 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
         "flops_lower_bound": flops,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ms_shadow_swept_alone": max((flops + shared) / PEAK_FP32_FLOPS * 1e3, bytes_ms),
         "shape": f"{name} band {n_rows}x800 px, {n_samples} spp, depth 5",
     }
     log(f"measure ({what}):", json.dumps(res))
@@ -700,6 +709,10 @@ def scene_setup(dev, sd, accel, nee):
 
 
 def stock(name: str):
+    """A stock scene, or "planes20": demo2 with a ring of 19 more planes (20
+    in all, past the sweep megakernel's 16)."""
+    if name == "planes20":
+        return genscene.plane_ring(stock("demo2"), 19)
     return load_scene(os.path.join(HERE, "scenes", f"{name}.yml"))
 
 
@@ -717,17 +730,27 @@ def work_counts(sc, cam, row0, seed, n_pix, dev, **kw) -> dict:
 
 
 def entered_share(c: dict, isect) -> dict:
-    """Blocks entered per fold, and as a share of the table, from a counting
-    launch: sphere folds are the bounces and the shadow folds, triangle
-    folds the same."""
+    """Work per fold from a counting launch: for spheres the walk's units
+    entered (tree leaves, or blocks with one level or none), the spheres
+    tested and their share of the table, the blocks and tree leaves a
+    perfect skip needs, the box tests; sphere folds of nearest hits are the
+    bounces, of shadow rays the shadow folds. Triangle blocks per fold, of
+    both."""
     folds = max(c["bounces"] + c["shadow_folds"], 1)
     out = {}
     if isect.mode == "scan":
-        nb = isect.layout.n_blocks
-        out.update(sphere_blocks=nb, sphere_blocks_entered_per_fold=c["sphere_blocks_entered"] / folds,
-                   sphere_share_entered=c["sphere_blocks_entered"] / folds / nb,
-                   sphere_blocks_needed_per_fold=c["sphere_blocks_needed"] / folds,
-                   sphere_box_tests_per_fold=c["sphere_box_tests"] / folds)
+        nb, near, sh = isect.layout.n_blocks, max(c["bounces"], 1), max(c["shadow_folds"], 1)
+        out.update(sphere_blocks=nb, sphere_units_entered_per_fold=c["sphere_blocks_entered"] / near,
+                   sphere_tests_per_fold=c["sphere_tests"] / near,
+                   sphere_share_tested=c["sphere_tests"] / near / (nb * SCAN_BLOCK),
+                   sphere_blocks_needed_per_fold=c["sphere_blocks_needed"] / near,
+                   sphere_leaves_needed_per_fold=c["sphere_leaves_needed"] / near,
+                   sphere_box_tests_per_fold=c["sphere_box_tests"] / near)
+        if c["shadow_folds"]:
+            out.update(shadow_sphere_units_entered_per_fold=c["shadow_sphere_blocks_entered"] / sh,
+                       shadow_sphere_tests_per_fold=c["shadow_sphere_tests"] / sh,
+                       shadow_sphere_blocks_needed_per_fold=c["shadow_sphere_blocks_needed"] / sh,
+                       shadow_sphere_box_tests_per_fold=c["shadow_sphere_box_tests"] / sh)
     if isect.tri_layout is not None:
         nb = isect.tri_layout.n_blocks
         out.update(tri_blocks=nb, tri_blocks_entered_per_fold=c["tri_blocks_entered"] / folds,
@@ -757,7 +780,36 @@ SCENE_CONFIGS = [
     ("demo5", "sweep", True, True, False),
     ("demo5", "sweep", True, False, True),
     ("demo5", "sweep", True, True, True),
+    ("planes20", "sweep", False, False, False),
+    ("planes20", "scan", True, False, False),
 ]
+
+
+def phase_past_the_caps(dev) -> None:
+    """Scenes past the sweep megakernel's caps, through the Renderer: 20
+    planes in sweep and in scan mode (the scene megakernel reads them from
+    its plane table), and sphere_field(100) (101 spheres) with accel "sweep",
+    which takes the scan; each an 8-row band against the plain version at
+    phase 3's gates, counted under its real configuration, and the 101-sphere
+    sweep bitwise equal to accel "scan"."""
+    cases = (("planes20", stock("planes20"), "sweep", "sweep"), ("planes20", stock("planes20"), "scan", "scan"),
+             ("sphere_field(100)", genscene.sphere_field(100, seed=2), "sweep", "scan"))
+    for label, sd, accel, taken in cases:
+        r = Renderer(sd, 4, 5, seed=42, device=dev, accel=accel)
+        check(r.accel == taken and not r.uses_sweep_kernel, f"{label}, accel {accel}: took {r.accel}")
+        row0 = r.height // 2 - 4
+        k, n, _ = run_path(f"{label}, accel {accel}", lambda: r.render_rows_sum_range(row0, 8, 0, 16))
+        check(n == {taken: 1}, f"{label}, accel {accel}: launches {n}")
+        p = render_block(r.scene, r.cam, row0, 0, r.seed, img_w=r.width, img_h=r.height, n_rows=8, n_samples=16,
+                         root=4, max_depth=5, isect=r.isect)
+        res = compare(k, p, 4, False)
+        if label.startswith("sphere_field"):
+            scan = Renderer(sd, 4, 5, seed=42, device=dev, accel="scan").render_rows_sum_range(row0, 8, 0, 16)
+            res["bitwise_equal_accel_scan"] = bits_equal(k, scan)
+            check(res["bitwise_equal_accel_scan"], f"{label}: accel sweep and scan differ")
+        log(f"past the sweep's caps ({label}, accel {accel} -> {taken}, 8x{r.width}, 16 spp):", json.dumps(res))
+        check(bool(torch.isfinite(k).all()), f"{label}: non-finite sums")
+        check_vs_plain(res, f"{label}, accel {accel}")
 
 
 def phase_scene_kernel_vs_plain(dev, name, accel, nee, physical, stats) -> dict:
@@ -956,15 +1008,15 @@ def phase_big_field(dev) -> dict:
     noskip = render_block_scene(sc, cam, row0, 0, 0, scan_skip=False, **kw)
     torch.cuda.synchronize()
     c = work_counts(sc, cam, row0, 0, 50 * w, dev, **kw)
-    # The band's first row against the plain version (513 blocks, 65 group boxes).
+    # The band's first row against the plain version (513 blocks under a tree of 1024 leaves).
     plain = []
     plain_ms = event_ms(lambda: plain.append(render_block(sc, cam, row0, 0, 0, **{**kw, "n_rows": 1})), 1)[0]
     cmp = compare(k[:1], plain[0], 4, False)
     res = {
         "vs_plain_first_row": cmp, "plain_ms_first_row": plain_ms,
         "spheres": sc.num_spheres, "blocks": isect.layout.n_blocks,
-        "table_bytes": scene_kernel.table_bytes(isect, None, sc.num_spheres + sc.num_planes),
-        "ms_two_level": event_ms(lambda: render_block_scene(sc, cam, row0, 0, 0, **kw), 3),
+        "table_bytes": scene_kernel.table_bytes(isect, None, sc.num_spheres + sc.num_planes, sc),
+        "ms_tree": event_ms(lambda: render_block_scene(sc, cam, row0, 0, 0, **kw), 3),
         "ms_one_level": event_ms(lambda: render_block_scene(sc, cam, row0, 0, 0, two_level=False, **kw), 3),
         "ms_no_skip": event_ms(lambda: render_block_scene(sc, cam, row0, 0, 0, scan_skip=False, **kw), 1),
         "one_level_bitwise_equal": bits_equal(k, single), "no_skip_bitwise_equal": bits_equal(k, noskip),
@@ -974,6 +1026,28 @@ def phase_big_field(dev) -> dict:
     check(bool(torch.isfinite(k).all()) and float(k.max()) > 0, "16384 spheres: bad sums")
     check(res["one_level_bitwise_equal"] and res["no_skip_bitwise_equal"], "16384 spheres: the skip changes the result")
     check_vs_plain(cmp, "scan on sphere_field(16384), the band's first row")
+    res["sweep_vs_scan"] = sweep_vs_scan(dev)
+    return res
+
+
+def sweep_vs_scan(dev) -> dict:
+    """Where the scan starts to beat the sweep megakernel
+    (render.SCAN_AUTO_THRESHOLD): one 50-row band of sphere_field(n - 1)
+    (n spheres with the environment sphere), n = 16, 32, 48, 64, at 800x600,
+    64 spp, depth 5, through a Renderer of each accel, in turns (6 rounds),
+    bitwise."""
+    res = {}
+    for n in (16, 32, 48, 64):
+        sd = genscene.sphere_field(n - 1, seed=0)
+        rs = {a: Renderer(sd, 8, 5, seed=0, device=dev, accel=a) for a in ("sweep", "scan")}
+        check(rs["sweep"].uses_sweep_kernel and rs["scan"].accel == "scan", f"{n} spheres: wrong kernels")
+        fns = {a: (lambda r=r: r.render_rows_sum_range(300, 50, 0, 64)) for a, r in rs.items()}
+        r = in_turns(fns)
+        r["bitwise_equal"] = bits_equal(fns["sweep"](), fns["scan"]())
+        r["scan_over_sweep"] = r["ms"]["scan"] / r["ms"]["sweep"]
+        res[n] = r
+        log(f"sweep vs scan, {n} spheres (sphere_field({n - 1}), 50x800 band, 64 spp):", json.dumps(r))
+        check(r["bitwise_equal"], f"{n} spheres: the scan and the sweep differ")
     return res
 
 
@@ -995,9 +1069,11 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
         tri_share = float(lights.host["pick"][lights.host["is_tri"] > 0.5].sum())
     flops = scene_kernel.flops_lower_bound(sc, isect, samples, c, with_stats=stats, physical=physical,
                                            tri_light_fraction=tri_share)
+    by_blocks = scene_kernel.flops_lower_bound(sc, isect, samples, c, with_stats=stats, physical=physical,
+                                               tri_light_fraction=tri_share, by_blocks=True)
     n_shapes = sc.num_spheres + sc.num_planes + sc.num_triangles
     bytes_moved = (4 if stats else 3) * n_pix * 4 + ctypes.sizeof(FluxScene) + scene_kernel.table_bytes(
-        isect, lights, n_shapes)
+        isect, lights, n_shapes, sc)
     ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, bytes_moved / PEAK_BYTES_PER_S * 1e3
     kernel_ms = launch_ms(lambda: render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kw))
     plan = plan_of(render_block_scene.last_plan)
@@ -1028,6 +1104,7 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
         "samples": samples, "bounces_per_sample": c["bounces"] / samples, "work_counts": c,
         "flops_lower_bound": flops, "bytes": bytes_moved, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ms_by_blocks": max(by_blocks / PEAK_FP32_FLOPS * 1e3, bytes_ms),
         "shape": f"{sd.scene_name} band {n_rows}x{w} px, {n_samples} spp, depth 5",
         **entered_share(c, isect),
     }
@@ -1122,66 +1199,183 @@ def phase_design(dev) -> dict:
     return res
 
 
-# ---- phase 15: the NEE arm of the sweep megakernel, step by step ----------
+# ---- phase 15: the scan, step by step --------------------------------------
 
-# The design steps of the NEE instantiations, each undone by a text edit of
-# the current sources (file, text in the sources, text in the variant): a.
-# the shadow ray swept with the next bounce's ray; b. four blocks an SM (64
-# registers); c. one range reduction for the cone's cos and sin. Beside
-# them, register caps of 80 and 72, and one step tried and not kept: the
-# carried shadow ray tested on after it is stopped (no early stop, fewer
-# branches).
-STEP_A = ("sweep_megakernel.cu", "  static constexpr bool DEFER_SHADOW = true;\n",
-          "  static constexpr bool DEFER_SHADOW = false;\n"
-          "  template <class C>\n"
-          "  __device__ __forceinline__ bool occluded(V3 o, V3 d, float a, float inv_a, float t_max, int exclude,\n"
-          "                                           int origin, C&) const {\n"
-          "    return sweep_occluded(o, d, a, inv_a, t_max, exclude, origin);\n"
-          "  }\n")
-STEP_B = ("sweep_megakernel.cu", "#define FLUX_SWEEP_NEE_MIN_BLOCKS 4", "#define FLUX_SWEEP_NEE_MIN_BLOCKS 1")
-STEP_C = ("flux_trace.cuh", "  float sd, cd;\n  sincosf(delta, &sd, &cd);  // one range reduction for both",
-          "  const float cd = cosf(delta), sd = sinf(delta);")
-NO_EARLY_STOP = ("flux_trace.cuh", "    if (shadow && !oc && i != exclude) {", "    if (shadow && i != exclude) {")
-NO_EARLY_STOP_PLANES = ("flux_trace.cuh", "    if (shadow && !oc && ns + j != exclude && ns + j != prev) {",
-                        "    if (shadow && ns + j != exclude && ns + j != prev) {")
-CAP_80 = ("sweep_megakernel.cu", "#define FLUX_SWEEP_NEE_MIN_BLOCKS 4", "#define FLUX_SWEEP_NEE_MIN_BLOCKS 3")
-CAP_72 = ("sweep_megakernel.cu",
-          "__global__ void __launch_bounds__(FLUX_BLOCK_THREADS, NEE ? FLUX_SWEEP_NEE_MIN_BLOCKS : 1)",
-          "__global__ void __maxnreg__(72)")
-# name -> the edits that make it; "final" is the sources as they are. An
-# edit that no longer applies to the sources leaves its variant out.
-NEE_VARIANTS = {
-    "before": (STEP_A, STEP_B, STEP_C),
-    "a": (STEP_B, STEP_C),
-    "a, 80 registers": (CAP_80, STEP_C),
-    "a, 72 registers": (CAP_72, STEP_C),
-    "a + b": (STEP_C,),
-    "b": (STEP_A, STEP_C),
-    "b + c": (STEP_A,),
-    "final: a + b + c": (),
-    "final, no early stop": (NO_EARLY_STOP, NO_EARLY_STOP_PLANES),
+# The design steps of the scan's sphere walk, each undone by a text edit of
+# the current sources (file, text in the sources, text in the variant): the
+# parent's walk, two levels of boxes in table order (its groups of 8 block
+# boxes are the tree's nodes over 8 blocks, or its root where there are
+# fewer); a, a tree over the blocks, walked by a warp as one, its children in
+# table order; b, the same walked nearer child first; c, the tree down to
+# runs of 16 spheres (the sources as they are); beside it c with each lane on
+# a path of its own, c with the sphere walks compiled as functions of their
+# own, d, c with both children of an entered node tested together, and e, c
+# with nearest folds back on the parent's walk.
+LEAF = "#define FLUX_SCAN_LEAF 16  // spheres under one leaf of the sphere tree"
+LEAF_32 = ("scan_walk.cuh", LEAF, LEAF.replace(" 16 ", " 32 "))
+TABLE_ORDER = ("scan_walk.cuh", "  return ((code >> 2) & 1) ^ (signbit(s) ? 1 : 0);",
+               "  (void)s;\n  return 0;")
+TABLE_ORDER_WALK = ("scan_walk.cuh",
+                    "    walk_tree(T.tree, T.block_leaves * FLUX_LEAVES_PER_BLOCK, o, inv_d, rs, cap, strict, tests, "
+                    "entered, cnt, clk,\n"
+                    "              [&](int leaf) { return fold(leaf * FLUX_SCAN_LEAF, FLUX_SCAN_LEAF); });",
+                    "    walk_blocks(T.box, T.tree + 2 * (max(T.block_leaves / FLUX_SUPER, 1) - 1), T.n_blocks, "
+                    "true, o, inv_d, rs, cap,\n"
+                    "                strict, tests, entered, cnt, clk, [&](int b) { return fold(b * FLUX_SCAN_BLOCK, "
+                    "FLUX_SCAN_BLOCK); });")
+WARP = ("scan_walk.cuh",
+        "__device__ __forceinline__ bool walk_any(unsigned group, bool p) { return __any_sync(group, p); }\n"
+        "__device__ __forceinline__ bool walk_all(unsigned group, bool p) { return __all_sync(group, p); }\n"
+        "__device__ __forceinline__ int walk_majority(unsigned group, int p) {\n"
+        "  return 2 * __popc(__ballot_sync(group, p)) > __popc(group) ? 1 : 0;\n}",
+        "__device__ __forceinline__ bool walk_any(unsigned, bool p) { return p; }\n"
+        "__device__ __forceinline__ bool walk_all(unsigned, bool p) { return p; }\n"
+        "__device__ __forceinline__ int walk_majority(unsigned, int p) { return p; }")
+CALLS = [("scan_walk.cuh", f"__device__ __forceinline__ {t} {f}(", f"__device__ __noinline__ {t} {f}(")
+         for t, f in (("void", "scan_nearest"), ("bool", "scan_occluded"))]
+# Step d: the tree walk with both children of an entered node tested together
+# (the text of the sources, then of the variant).
+PAIR_WALK = ("scan_walk.cuh", (
+    'template <class C, class F>\n'
+    '__device__ __forceinline__ void walk_tree(const float4* __restrict__ tree, int n_leaves, V3 o, V3 inv_d,\n'
+    '                                          RaySlack rs, const float& cap, bool strict, uint32_t& tests,\n'
+    '                                          uint32_t& entered, C& cnt, int clk, F fold) {\n'
+    '  const unsigned group = __activemask();\n'
+    '  const int first_leaf = n_leaves - 1;\n'
+    '  long long t = cnt.now();\n'
+    '  uint32_t trail = 0u;\n'
+    '  bool done = false;\n'
+    '  int i = 0;\n'
+    '  for (;;) {\n'
+    '    const float4 lo = __ldg(&tree[2 * i]), hi = __ldg(&tree[2 * i + 1]);\n'
+    '    tests += done ? 0u : 1u;\n'
+    '    const bool in = !done && box_enter(lo, hi, o, inv_d, cap, strict, rs);\n'
+    '    cnt.lap(clk, t);\n'
+    '    if (walk_any(group, in)) {\n'
+    '      if (i < first_leaf) {\n'
+    '        i = 2 * i + 1 + walk_majority(group, second_first(hi.w, inv_d));\n'
+    '        trail = (trail << 1) | 1u;\n'
+    '        continue;\n'
+    '      }\n'
+    '      if (in) {\n'
+    '        entered += 1u;\n'
+    '        done = fold(i - first_leaf);\n'
+    '        cnt.lap(clk + 1, t);\n'
+    '      }\n'
+    '      if (walk_all(group, done)) return;\n'
+    '    }\n'
+    '    while ((trail & 1u) == 0u) {  // climb past levels whose children are both done\n'
+    '      if (trail == 0u) return;\n'
+    '      trail >>= 1;\n'
+    '      i = (i - 1) >> 1;\n'
+    '    }\n'
+    '    trail ^= 1u;\n'
+    '    i = ((i - 1) ^ 1) + 1;  // the other child\n'
+    '  }\n'
+    '}\n'
+), (
+    'template <class C, class F>\n'
+    '__device__ __forceinline__ void walk_tree(const float4* __restrict__ tree, int n_leaves, V3 o, V3 inv_d,\n'
+    '                                          RaySlack rs, const float& cap, bool strict, uint32_t& tests,\n'
+    '                                          uint32_t& entered, C& cnt, int clk, F fold) {\n'
+    '  const unsigned group = __activemask();\n'
+    '  const int first_leaf = n_leaves - 1;\n'
+    '  long long t = cnt.now();\n'
+    '  uint32_t trail = 0u;\n'
+    '  bool done = false;\n'
+    '  int i = 0;\n'
+    '  float4 hi = __ldg(&tree[1]);\n'
+    '  tests += 1u;\n'
+    '  bool in = box_enter(__ldg(&tree[0]), hi, o, inv_d, cap, strict, rs);\n'
+    '  cnt.lap(clk, t);\n'
+    '  for (;;) {\n'
+    '    if (walk_any(group, in)) {\n'
+    '      if (i >= first_leaf) {\n'
+    '        if (in) {\n'
+    '          entered += 1u;\n'
+    '          done = fold(i - first_leaf);\n'
+    '          cnt.lap(clk + 1, t);\n'
+    '        }\n'
+    '        if (walk_all(group, done)) return;\n'
+    '      } else {\n'
+    '        const int l = 2 * i + 1;\n'
+    '        const float4 lo0 = __ldg(&tree[2 * l]), hi0 = __ldg(&tree[2 * l + 1]);\n'
+    '        const float4 lo1 = __ldg(&tree[2 * l + 2]), hi1 = __ldg(&tree[2 * l + 3]);\n'
+    '        tests += done ? 0u : 2u;\n'
+    '        const bool in0 = !done && box_enter(lo0, hi0, o, inv_d, cap, strict, rs);\n'
+    '        const bool in1 = !done && box_enter(lo1, hi1, o, inv_d, cap, strict, rs);\n'
+    '        cnt.lap(clk, t);\n'
+    '        const bool any0 = walk_any(group, in0), any1 = walk_any(group, in1);\n'
+    '        if (any0 || any1) {\n'
+    '          const int second = any0 && any1 ? walk_majority(group, second_first(hi.w, inv_d)) : any1 ? 1 : 0;\n'
+    '          trail = (trail << 1) | (any0 && any1 ? 1u : 0u);\n'
+    '          i = l + second;\n'
+    '          in = second ? in1 : in0;\n'
+    '          hi = second ? hi1 : hi0;\n'
+    '          continue;\n'
+    '        }\n'
+    '      }\n'
+    '    }\n'
+    '    while ((trail & 1u) == 0u) {  // climb past levels with nothing left to visit\n'
+    '      if (trail == 0u) return;\n'
+    '      trail >>= 1;\n'
+    '      i = (i - 1) >> 1;\n'
+    '    }\n'
+    '    trail ^= 1u;\n'
+    '    i = ((i - 1) ^ 1) + 1;  // the other child\n'
+    '    hi = __ldg(&tree[2 * i + 1]);\n'
+    '    tests += done ? 0u : 1u;\n'
+    '    in = !done && box_enter(__ldg(&tree[2 * i]), hi, o, inv_d, cap, strict, rs);\n'
+    '    cnt.lap(clk, t);\n'
+    '  }\n'
+    '}\n'
+))
+# Nearest folds on the parent's two levels in table order (the tree's nodes
+# over 8 blocks), shadow folds on the tree.
+NEAREST_IN_TABLE_ORDER = [
+    ("scan_walk.cuh", "// The nearest sphere of the table along (o, d)",
+     "template <class C, class F>\n"
+     "__device__ __forceinline__ void walk_in_table_order(const SphereTable& T, V3 o, V3 inv_d, RaySlack rs,\n"
+     "    const float& cap, bool strict, uint32_t& tests, uint32_t& entered, C& cnt, int clk, F fold) {\n"
+     "  const float4* groups = T.walk == 2 ? T.tree + 2 * (max(T.block_leaves / FLUX_SUPER, 1) - 1) : nullptr;\n"
+     "  walk_blocks(T.box, groups, T.n_blocks, T.walk != 0, o, inv_d, rs, cap, strict, tests, entered, cnt, clk,\n"
+     "              [&](int b) { return fold(b * FLUX_SCAN_BLOCK, FLUX_SCAN_BLOCK); });\n"
+     "}\n\n"
+     "// The nearest sphere of the table along (o, d)"),
+    ("scan_walk.cuh", "  walk_spheres(T, o, inv_d, rs, best_t, false,", "  walk_in_table_order(T, o, inv_d, rs, best_t, false,"),
+]
+PARENT_WALK = "the parent's walk: two levels, table order"
+FINAL = "c: the tree down to runs of 16 spheres"
+# name -> the edits that make it; FINAL is the sources as they are.
+SCAN_VARIANTS = {
+    PARENT_WALK: (TABLE_ORDER_WALK,),
+    "a: a tree over the blocks, table order": (TABLE_ORDER, LEAF_32),
+    "b: a tree over the blocks, nearer child first": (LEAF_32,),
+    "c, each lane on a path of its own": (WARP,),
+    "c, the walks as functions of their own": tuple(CALLS),
+    "d: c with both children of a node tested together": (PAIR_WALK,),
+    "e: c with nearest folds in table order": tuple(NEAREST_IN_TABLE_ORDER),
+    FINAL: (),
 }
-FINAL = "final: a + b + c"
-VARIANT_FILES = ("flux_trace.cuh", "sweep_megakernel.cu")
-# The target rows: one launch of each path (seed 0, depth 5, 800 wide).
-NEE_ROWS = {
-    "K3 sweep+nee": dict(name="demo2", row0=300, n_rows=50, n_samples=1024, root=32, nee=True, physical=False,
-                         stats=False),
-    "MIS+stats sweep+nee+physical+stats": dict(name="demo3", row0=256, n_rows=128, n_samples=64, root=32, nee=True,
-                                               physical=True, stats=True),
+VARIANT_FILES = ("flux_trace.cuh", "scan_walk.cuh", "scene_megakernel.cu")
+# The scan's launches (seed 0, depth 5, 800 wide): its three rows of phase
+# 13 and phase 12's band of sphere_field(16384).
+SCAN_ROWS = {
+    "K5 scan": dict(name="spheres512", row0=300, n_rows=50, n_samples=64, root=8),
+    "K5+K3 scan+nee": dict(name="spheres512", row0=300, n_rows=50, n_samples=16, root=4, nee=True),
+    "K5+K2 scan+stats": dict(name="spheres512", row0=256, n_rows=128, n_samples=8, root=4, stats=True),
+    "sphere_field(16384) scan": dict(name="field16384", row0=300, n_rows=50, n_samples=16, root=4),
 }
 
 
-def start_variant_builds(parent: str | None) -> dict:
-    """Writes each design variant's sources, and with ``parent`` (the root of
-    another checkout) that checkout's sweep source as variant "parent",
-    under the build directory, in a folder named by a hash of the sources
-    and the flags as ops/build.py names a library, and starts one nvcc for
-    each that is not built yet. Returns (process or None, library, start)
-    by variant."""
+def start_variant_builds() -> dict:
+    """Writes each design variant's sources under the build directory, in a
+    folder named by a hash of the sources and the flags as ops/build.py
+    names a library, and starts one nvcc for each that is not built yet.
+    Returns (process or None, library, start) by variant."""
     base = {f: (build.CSRC / f).read_text() for f in VARIANT_FILES}
-    sources = {}
-    for name, edits in NEE_VARIANTS.items():
+    running = {}
+    for name, edits in SCAN_VARIANTS.items():
         if not edits:
             continue
         stale = [f for f, new, _ in edits if base[f].count(new) != 1]
@@ -1191,17 +1385,11 @@ def start_variant_builds(parent: str | None) -> dict:
         srcs = dict(base)
         for f, new, old in edits:
             srcs[f] = srcs[f].replace(new, old)
-        sources[name] = srcs
-    if parent:
-        csrc = os.path.join(parent, "flux_tpu_torch", "csrc")
-        sources["parent"] = {f: open(os.path.join(csrc, f)).read() for f in VARIANT_FILES}
-    running = {}
-    for name, srcs in sources.items():
         digest = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
         for f in VARIANT_FILES:
             digest.update(f.encode() + b"\0" + srcs[f].encode())
         d = build.BUILD_DIR / "variants" / digest.hexdigest()[:16]
-        lib = d / "libsweep_megakernel.so"
+        lib = d / "libscene_megakernel.so"
         if lib.exists():
             running[name] = (None, lib, time.perf_counter())
             continue
@@ -1209,15 +1397,14 @@ def start_variant_builds(parent: str | None) -> dict:
         for f, text in srcs.items():
             (d / f).write_text(text)
         tmp = d / f"lib.{os.getpid()}.tmp"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(tmp), str(d / "sweep_megakernel.cu")]
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(tmp), str(d / "scene_megakernel.cu")]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib,
                          time.perf_counter())
     return running
 
 
 def finish_variant_builds(running: dict) -> dict:
-    """Waits for the variants' builds: variant -> (library, ptxas report).
-    Only the 72-register cap may fail (``__maxnreg__`` needs CUDA 12.4)."""
+    """Waits for the variants' builds: variant -> (library, ptxas report)."""
     built = {}
     for name, (proc, lib, t0) in running.items():
         log_file = lib.with_suffix(".log")
@@ -1227,26 +1414,22 @@ def finish_variant_builds(running: dict) -> dict:
         else:
             report = proc.communicate()[0]
             log(f"build: variant {name!r} in {time.perf_counter() - t0:.1f} s, rc {proc.returncode}")
-            if proc.returncode != 0:
-                check(name == "a, 72 registers", f"variant {name} failed to build:\n{report}")
-                log(report[-2000:])
-                continue
+            check(proc.returncode == 0, f"variant {name} failed to build:\n{report}")
             log_file.write_text(report)
             os.replace(lib.parent / f"lib.{os.getpid()}.tmp", lib)
-        built[name] = (sweep_kernel.declare(ctypes.CDLL(str(lib))), report, lib)
-    built[FINAL] = (sweep_kernel._library(), build.BUILD_LOG["sweep_megakernel"]["ptxas"],
-                    build._plan("sweep_megakernel")[1])
+        built[name] = (scene_kernel.declare(ctypes.CDLL(str(lib))), report)
+    built[FINAL] = (scene_kernel._library(), build.BUILD_LOG["scene_megakernel"]["ptxas"])
     return built
 
 
-def ptxas_rows(report: str) -> dict:
-    """Registers, spill bytes and stack frame of each sweep instantiation
-    from a ptxas report, keyed <STATS,NEE,PHYSICAL,COUNT>."""
+def ptxas_rows(report: str, kernel: str = "scene_megakernel") -> dict:
+    """Registers, spill bytes and stack frame of each instantiation of a
+    kernel from a ptxas report, keyed <STATS,NEE,PHYSICAL,COUNT>."""
     import re
 
     rows, cur = {}, None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '_Z16sweep_megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+        m = re.search(rf"Compiling entry function '_Z{len(kernel)}{kernel}ILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
         if m:
             cur = "<" + ",".join(m.groups()) + ">"
             rows[cur] = {}
@@ -1262,151 +1445,177 @@ def ptxas_rows(report: str) -> dict:
     return rows
 
 
-def sass_local(lib_path: str) -> dict:
-    """Local-memory stores and loads and calls in the SASS of each NEE
-    instantiation (cuobjdump -sass): the slow path of sinf and cosf and
-    spills show there."""
-    import re
-    import shutil
-
-    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    try:
-        sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120).stdout
-    except OSError as e:
-        return {"error": str(e)}
-    out, cur = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : _Z16sweep_megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
-        if m:
-            cur = "<" + ",".join(m.groups()) + ">"
-            out[cur] = {"STL": 0, "LDL": 0, "CALL": 0, "instructions": 0}
-        elif cur is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            out[cur]["instructions"] += 1
-            for op in ("STL", "LDL", "CALL"):
-                if re.search(rf"\b{op}\b", line):
-                    out[cur][op] += 1
-    return {k: v for k, v in out.items() if k[3] == "1"}  # the NEE ones
+def scan_setup(dev, shape: dict) -> dict:
+    """The scene, camera, intersector and lights of a scan row, and its
+    launch arguments."""
+    sd = genscene.sphere_field(16384, seed=0) if shape["name"] == "field16384" else stock(shape["name"])
+    sc, cam, isect, lights, w, h = scene_setup(dev, sd, "scan", shape.get("nee", False))
+    return dict(sc=sc, cam=cam, isect=isect, lights=lights, w=w, h=h, row0=shape["row0"], n_rows=shape["n_rows"],
+                n_samples=shape["n_samples"], root=shape["root"], stats=shape.get("stats", False))
 
 
-def raw_sweep(lib, scene, cam, lights, *, row0, n_rows, n_samples, root, physical, stats, split, counts=None):
-    """One launch of a sweep kernel library (the wrapper's call, with the
-    split given): seed 0, depth 5, 800x600. Not counted in the wrapper's
-    launches."""
-    n_pix = n_rows * 800
-    out = torch.empty((4 if stats else 3, n_pix), dtype=torch.float32, device=scene.device)
-    packed = pack_scene(scene, cam)
-    pl = None if lights is None else ctypes.byref(pack_lights(lights))
-    err = lib.flux_sweep_render(
-        out.data_ptr(), None if counts is None else counts.data_ptr(), ctypes.byref(packed), pl, int(stats),
-        int(physical), n_pix, 800, 600, row0, 1, 0, n_samples, 1 << 32, 0, root, 5, split,
-        torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"raw sweep launch failed: CUDA error {err}")
+def raw_scene(lib, st: dict, counts=None, **skips) -> torch.Tensor:
+    """One launch of a scene kernel library as render_block_scene makes it
+    (seed 0, depth 5), not counted in the wrapper's launches."""
+    n_pix = st["n_rows"] * st["w"]
+    stats = st["stats"] and counts is None
+    out = torch.empty((4 if stats else 3, n_pix), dtype=torch.float32, device=st["sc"].device)
+    packed = pack_scene(st["sc"], st["cam"], spheres=False, planes=st["sc"].num_planes <= sweep_kernel.MAX_PLANES)
+    geom, keep = scene_kernel.pack_geom(st["sc"], st["isect"], st["lights"], st["sc"].device, **skips)
+    plan = sweep_kernel.plan_launch(lib.flux_scene_blocks_per_sm, st["sc"].device, n_pix, st["n_samples"], stats,
+                                    st["lights"] is not None, False, counts is not None, 5)
+    err = lib.flux_scene_render(
+        out.data_ptr(), None if counts is None else counts.data_ptr(), ctypes.byref(packed), ctypes.byref(geom),
+        int(stats), int(st["lights"] is not None), 0, n_pix, st["w"], st["h"], st["row0"], 1, 0, st["n_samples"],
+        1 << 32, 0, st["root"], 5, plan.split, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"raw scene launch failed: CUDA error {err}")
+    del keep
     return out
 
 
-def clock_split(lib, scene, cam, lights, shape: dict) -> dict:
-    """The counting instantiation's counters on a launch (the stats channel
-    adds no work, so without it): work, and the cycles of each phase of a
-    bounce as shares of their sum, per sample and per bounce."""
-    n_pix = shape["n_rows"] * 800
-    counts = torch.zeros((sweep_kernel.N_COUNTS, n_pix), dtype=torch.int32, device=scene.device)
-    split = launch_plan(n_pix, shape["n_samples"]).split
-    raw_sweep(lib, scene, cam, lights, row0=shape["row0"], n_rows=shape["n_rows"], n_samples=shape["n_samples"],
-              root=shape["root"], physical=shape["physical"], stats=False, split=split, counts=counts)
+def scan_counts(lib, st: dict) -> dict:
+    """A variant's counting launch on a scan row: per nearest fold and per
+    shadow fold the sphere blocks (32 spheres) and tree leaves (the
+    variant's leaf) a perfect skip needs, the walk's units entered (leaves,
+    or blocks in table order), the spheres tested and the box tests; and
+    the clock64 cycles of the sphere walks (box tests and folds) against the
+    bounce's phases that hold them, the counting launch's own passes for the
+    needed counters taken out."""
+    counts = torch.zeros((scene_kernel.N_COUNTS, st["n_rows"] * st["w"]), dtype=torch.int32, device=st["sc"].device)
+    raw_scene(lib, st, counts=counts)
     torch.cuda.synchronize()
-    c = (counts.to(torch.int64) & 0xFFFFFFFF).sum(dim=1).tolist()
-    named = dict(zip(sweep_kernel.COUNT_NAMES, c))
-    clk = {k: v for k, v in named.items() if k.startswith("clk_")}
-    total = max(sum(clk.values()), 1)
-    samples = n_pix * shape["n_samples"]
-    return {"work": {k: v for k, v in named.items() if not k.startswith("clk_")},
-            "cycles_share": {k: v / total for k, v in clk.items()},
-            "cycles_per_sample": total / samples, "cycles_per_bounce": total / max(named["bounces"], 1)}
-
-
-def phase_nee_steps(dev, built: dict) -> dict:
-    """Phase 15: the NEE arm's design, measured on the two target launches
-    (K3 on a demo2 band at 1024 spp; MIS + stats on a demo3 band at 64
-    spp). Each design variant's registers and spills (ptxas) and local
-    memory and calls (SASS); the clock split of a bounce from the counting
-    launch with every step undone ("before") and of the final sources;
-    every variant timed on each launch in turns (forward, then backward;
-    CUDA events around 3 launches, median of 6 rounds, with the quartile
-    spread) and its sums bitwise against "before"; and the final sources
-    at each split of the plan on both launches. With a "parent" variant,
-    also K1's main-path band through the parent's build and the final one
-    in turns, bitwise."""
-    res = {"ptxas": {n: {k: v for k, v in ptxas_rows(r).items() if k[3] == "1" or n == "parent" or n == FINAL}
-                     for n, (_, r, _) in built.items()}}
-    base = "before" if "before" in built else FINAL
-    res["sass"] = {n: sass_local(str(built[n][2])) for n in {base, FINAL}}
-    names = list(built)
-    for row, shape in NEE_ROWS.items():
-        sd, scene, cam = scene_on(dev, shape["name"])
-        lights = extract_lights(sd, dev)
-        n_pix = shape["n_rows"] * 800
-        plan_split = launch_plan(n_pix, shape["n_samples"]).split
-        kw = dict(row0=shape["row0"], n_rows=shape["n_rows"], n_samples=shape["n_samples"], root=shape["root"],
-                  physical=shape["physical"], stats=shape["stats"])
-        r = {"split": plan_split,
-             "clock_split_before": clock_split(built[base][0], scene, cam, lights, shape),
-             "clock_split_final": clock_split(built[FINAL][0], scene, cam, lights, shape)}
-        ref = raw_sweep(built[base][0], scene, cam, lights, split=plan_split, **kw)
-        times = {n: [] for n in names}
-        bits = {}
-        for n in names:  # a warm-up launch each, and the bits
-            out = raw_sweep(built[n][0], scene, cam, lights, split=plan_split, **kw)
-            torch.cuda.synchronize()
-            bits[n] = bits_equal(out, ref)
-        for rnd in range(6):
-            for n in (names if rnd % 2 == 0 else names[::-1]):
-                times[n] += launch_ms(lambda: raw_sweep(built[n][0], scene, cam, lights, split=plan_split, **kw),
-                                      reps=1, n=3)
-        r["ms"] = {n: float(np.median(t)) for n, t in times.items()}
-        r["ms_quartile_spread"] = {n: float(np.subtract(*np.percentile(t, [75, 25]))) for n, t in times.items()}
-        r["bits_equal_before"] = bits
-        final = built[FINAL][0]
-        splits = {sp: [] for sp in (8, 16, 32)}
-        for rnd in range(6):
-            for sp in ((8, 16, 32) if rnd % 2 == 0 else (32, 16, 8)):
-                splits[sp] += launch_ms(lambda: raw_sweep(final, scene, cam, lights, split=sp, **kw), reps=1, n=3)
-        r["final_ms_by_split"] = {sp: float(np.median(t)) for sp, t in splits.items()}
-        res[row] = r
-        log(f"NEE steps ({row}, {shape['name']} band {shape['n_rows']}x800, {shape['n_samples']} spp):",
-            json.dumps(r))
-    if "parent" in built:
-        res["parent"] = parent_rows(dev, built)
-    log("NEE steps (registers, spills, stack; local memory in SASS):",
-        json.dumps({k: res[k] for k in ("ptxas", "sass")}))
+    c = dict(zip(scene_kernel.COUNT_NAMES, ((counts.to(torch.int64) & 0xFFFFFFFF).sum(dim=1)).tolist()))
+    c["clk_nearest"] -= c["clk_needed_walk"]
+    c["clk_shadow"] -= c["clk_shadow_needed_walk"]
+    res = {"leaf": lib.flux_scene_scan_leaf(), "nearest_folds": c["bounces"], "shadow_folds": c["shadow_folds"]}
+    for fold, pre, n in (("nearest", "", c["bounces"]), ("shadow", "shadow_", c["shadow_folds"])):
+        n = max(n, 1)
+        res[fold] = {
+            "blocks_needed": c[f"{pre}sphere_blocks_needed"] / n, "leaves_needed": c[f"{pre}sphere_leaves_needed"] / n,
+            "units_entered": c[f"{pre}sphere_blocks_entered"] / n, "sphere_tests": c[f"{pre}sphere_tests"] / n,
+            "box_tests": c[f"{pre}sphere_box_tests"] / n, "cycles": c[f"clk_{fold}"] / n,
+            "box_cycles": c[f"clk_{pre}sphere_boxes"] / n, "fold_cycles": c[f"clk_{pre}sphere_folds"] / n,
+        }
+    phases = ("clk_nearest", "clk_light", "clk_shadow", "clk_scatter", "clk_mis")
+    total = max(sum(c[k] for k in phases), 1)
+    res["bounce_cycles_share"] = {k: c[k] / total for k in phases}
     return res
 
 
-def parent_rows(dev, built: dict) -> dict:
-    """Every sweep instantiation's row of phases 6 and 9 (the same launch)
-    through the parent's build and the final one in turns (parent, final,
-    final, parent, twice; CUDA events around 3 launches back to back,
-    median of the 8 rounds of each, with the quartile spread), and whether
-    the two give the same bits."""
+def scan_counting(dev, built: dict) -> dict:
+    """Phase 15's counting part: each variant's counters on each scan row,
+    and each build's registers and spills."""
+    res = {"ptxas": {n: ptxas_rows(r) for n, (_, r) in built.items()}}
+    for row, shape in SCAN_ROWS.items():
+        st = scan_setup(dev, shape)
+        res[row] = {n: scan_counts(lib, st) for n, (lib, _) in built.items()}
+        log(f"scan steps, counts ({row}, {shape['name']} band {shape['n_rows']}x800, {shape['n_samples']} spp):",
+            json.dumps(res[row]))
+    log("scan steps (registers, spills, stack):", json.dumps(res["ptxas"]))
+    return res
+
+
+def in_turns(fns: dict, rounds: int = 6) -> dict:
+    """Each function timed in turns, forward then backward (CUDA events
+    around 3 launches back to back, one per round): the median and the
+    quartile spread of its rounds."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names:
+        fns[n]()  # warm-up
+    for rnd in range(rounds):
+        for n in (names if rnd % 2 == 0 else names[::-1]):
+            times[n] += launch_ms(fns[n], reps=1, n=3)
+    return {"ms": {n: float(np.median(t)) for n, t in times.items()},
+            "ms_quartile_spread": {n: float(np.subtract(*np.percentile(t, [75, 25]))) for n, t in times.items()}}
+
+
+def phase_scan_steps(dev, built: dict) -> dict:
+    """Phase 15: the scan's design, step by step, on its launches. The
+    counting part (scan_counting); then every variant, and the final build
+    with one level of boxes and with the skip off, timed in turns on each
+    row (6 rounds), with its sums bitwise against the final build's."""
+    res = scan_counting(dev, built)
+    for row, shape in SCAN_ROWS.items():
+        st = scan_setup(dev, shape)
+        final = built[FINAL][0]
+        fns = {n: (lambda lib=lib: raw_scene(lib, st)) for n, (lib, _) in built.items()}
+        fns["final, one level of boxes"] = lambda: raw_scene(final, st, two_level=False)
+        if shape["name"] != "field16384":  # about 100 ms a launch there: timed once in phase 12
+            fns["final, skip off"] = lambda: raw_scene(final, st, scan_skip=False)
+        ref = fns[FINAL]()
+        torch.cuda.synchronize()
+        r = in_turns(fns)
+        r["bits_equal_final"] = {n: bits_equal(fn(), ref) for n, fn in fns.items()}
+        res[row].update(times=r)
+        log(f"scan steps, times ({row}):", json.dumps(r))
+        check(all(r["bits_equal_final"].values()), f"{row}: a design step changes the result")
+    return res
+
+
+# ---- phase 16: every row against the parent's build -------------------------
+
+
+def load_parent(root: str):
+    """The package of another checkout (``root``/flux_tpu_torch, e.g. the
+    parent commit's unpacked by ``git archive``), imported under the name
+    ``flux_tpu_torch_parent`` with its own build module, build directory and
+    launch counters."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "flux_tpu_torch")
+    spec = importlib.util.spec_from_file_location("flux_tpu_torch_parent", os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["flux_tpu_torch_parent"] = mod
+    spec.loader.exec_module(mod)
+    for sub in ("ops.build", "render", "scene", "genscene", "meshgen"):
+        importlib.import_module(f"flux_tpu_torch_parent.{sub}")
+    return mod
+
+
+def package_scene(pkg, name: str):
+    """A row's SceneData as ``pkg`` (this package or the parent's) makes it."""
+    if name == "mesh1280":
+        return pkg.meshgen.mesh_scene(*pkg.meshgen.icosphere(3), name="mesh1280")
+    if name == "field16384":
+        return pkg.genscene.sphere_field(16384, seed=0)
+    return pkg.scene.load_scene(os.path.join(HERE, "scenes", f"{name}.yml"))
+
+
+def parent_rows(dev, parent) -> dict:
+    """Every row of phases 6, 9 and 13 and phase 12's band through the
+    parent's package and this one (each a Renderer of its own making one
+    launch), in turns (parent, new, new, parent, twice; CUDA events around
+    3 launches back to back, median of the 8 rounds of each, with the
+    quartile spread), and whether the two give the same bits."""
+    import flux_tpu_torch
+
     rows = [("sweep", dict(name="demo2", row0=300, n_rows=50, n_samples=16384, root=128))]
     rows += [(cfg, shape) for cfg, _, shape in MEASURE]
+    rows += [(cfg, {"name": name, **shape}) for cfg, _, name, shape in SCENE_MEASURE]
+    rows += [("scan, sphere_field(16384)", SCAN_ROWS["sphere_field(16384) scan"])]
     res = {}
     for cfg, shape in rows:
-        sd, scene, cam = scene_on(dev, shape["name"])
-        lights = extract_lights(sd, dev) if shape.get("nee") else None
-        kw = dict(row0=shape["row0"], n_rows=shape["n_rows"], n_samples=shape["n_samples"], root=shape["root"],
-                  physical=shape.get("physical", False), stats=shape.get("stats", False))
-        split = launch_plan(shape["n_rows"] * 800, shape["n_samples"]).split
-        outs = {n: raw_sweep(built[n][0], scene, cam, lights, split=split, **kw) for n in ("parent", FINAL)}
-        times = {n: [] for n in outs}
+        pkgs = {"parent": parent, "new": flux_tpu_torch}
+        fns, outs = {}, {}
+        for label, pkg in pkgs.items():
+            r = pkg.render.Renderer(package_scene(pkg, shape["name"]), shape["root"], 5, seed=0, device=dev,
+                                    accel=shape.get("accel"), nee=shape.get("nee", False),
+                                    physical=shape.get("physical", False))
+            fns[label] = (lambda r=r: r.render_rows_sum_range(shape["row0"], shape["n_rows"], 0, shape["n_samples"],
+                                                              with_stats=shape.get("stats", False)))
+            outs[label] = fns[label]()
+        times = {n: [] for n in fns}
         for rnd in range(4):
-            for n in (("parent", FINAL, FINAL, "parent") if rnd % 2 == 0 else (FINAL, "parent", "parent", FINAL)):
-                times[n] += launch_ms(lambda: raw_sweep(built[n][0], scene, cam, lights, split=split, **kw),
-                                      reps=1, n=3)
-        res[cfg] = {"bits_equal": bits_equal(outs["parent"], outs[FINAL]),
+            for n in (("parent", "new", "new", "parent") if rnd % 2 == 0 else ("new", "parent", "parent", "new")):
+                times[n] += launch_ms(fns[n], reps=1, n=3)
+        res[cfg] = {"bits_equal": bits_equal(outs["parent"], outs["new"]),
                     "ms": {n: float(np.median(t)) for n, t in times.items()},
                     "ms_quartile_spread": {n: float(np.subtract(*np.percentile(t, [75, 25])))
                                            for n, t in times.items()}}
-        log(f"against the parent ({cfg}, {shape['name']} band {shape['n_rows']}x800, {shape['n_samples']} spp):",
+        log(f"against the parent ({cfg}, {shape['name']} band {shape['n_rows']} rows, {shape['n_samples']} spp):",
             json.dumps(res[cfg]))
     return res
 
@@ -1434,8 +1643,9 @@ def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of flux_tpu_torch on one CUDA card.")
-    ap.add_argument("--parent", help="root of another checkout (say the parent commit's): phase 15 builds its "
-                    "sweep source beside the current one and times both on the same launches, bitwise")
+    ap.add_argument("--parent", help="root of another checkout (say the parent commit's, unpacked by git "
+                    "archive): phase 2 builds its kernel sources beside the current ones, and phase 16 times "
+                    "every row through both packages on the same launches, bitwise")
     args = ap.parse_args(argv)
     # 1. probe
     if not torch.cuda.is_available():
@@ -1444,17 +1654,26 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = smi()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    # 2. build: one nvcc per source and per design variant of phase 15, all
-    # started together
+    # 2. build: one nvcc per source, per design variant of phase 15 and per
+    # source of the parent's package, all started together
     t0 = time.perf_counter()
-    variants = start_variant_builds(args.parent)
-    build.build_many(list(build.LIBRARIES))
+    parent = load_parent(args.parent) if args.parent else None
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        parent_built = None if parent is None else pool.submit(parent.ops.build.build_many,
+                                                               list(parent.ops.build.LIBRARIES))
+        variants = start_variant_builds()
+        build.build_many(list(build.LIBRARIES))
+        built_variants = finish_variant_builds(variants)
+        if parent_built is not None:
+            parent_built.result()
+            for name, info in parent.ops.build.BUILD_LOG.items():
+                log(f"build: the parent's {name} in {info['seconds']:.1f} s:",
+                    json.dumps(ptxas_rows(info["ptxas"], name)))
     log(f"build: {len(build.LIBRARIES)} libraries in {time.perf_counter() - t0:.1f} s of wall time")
     for name in build.LIBRARIES:
         info = build.BUILD_LOG[name]
         log(f"build: {name} in {info['seconds']:.1f} s")
         log(info["ptxas"].strip())
-    built_variants = finish_variant_builds(variants)
     log(f"build: with {len(variants)} design variants, {time.perf_counter() - t0:.1f} s of wall time")
     # 3-6
     with phase_timer("3 kernel vs plain (K1)"):
@@ -1485,10 +1704,11 @@ def main(argv=None) -> int:
             m = measure_launch(dev, **shape)
             kernels.append(kernel_entry(f"sweep_megakernel[{cfg}]", replaces, paths["launches"][cfg], m))
     # 10-13: the scene megakernel (K5 scan, K6 triangles, K7 triangle lights)
-    with phase_timer("10 scene kernel vs plain, skip on and off, scan vs sweep"):
+    with phase_timer("10 scene kernel vs plain, skip on and off, scan vs sweep, past the sweep's caps"):
         for cfg in SCENE_CONFIGS:
             phase_scene_kernel_vs_plain(dev, *cfg)
         phase_scan_equals_sweep(dev)
+        phase_past_the_caps(dev)
     with phase_timer("11 scene paths"), tempfile.TemporaryDirectory() as tmp:
         scene_paths = phase_scene_paths(dev, tmp, card)
     with phase_timer("12 sphere_field(16384) band"):
@@ -1505,8 +1725,11 @@ def main(argv=None) -> int:
             kernels.append(entry)
     with phase_timer("14 design checks"):
         phase_design(dev)
-    with phase_timer("15 the NEE arm, step by step"):
-        phase_nee_steps(dev, built_variants)
+    with phase_timer("15 the scan, step by step"):
+        phase_scan_steps(dev, built_variants)
+    if parent is not None:
+        with phase_timer("16 against the parent's build"):
+            parent_rows(dev, parent)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -79,7 +79,8 @@
 // Scene and camera constants; mirrored by flux_tpu_torch/ops/sweep_kernel.py
 // (FluxScene), which checks the size at load time. The scene megakernel in
 // scan mode leaves the sphere arrays empty (n_spheres 0) and keeps the planes'
-// material rows from row 0.
+// material rows from row 0; with more than FLUX_MAX_PLANES planes its record
+// holds none (n_planes 0) and it reads them from a device table.
 struct FluxScene {
   int n_spheres;
   int n_planes;

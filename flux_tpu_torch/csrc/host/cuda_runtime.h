@@ -2,17 +2,22 @@
 // compile flux_trace.cuh's device functions as host code:
 //   g++ -std=c++17 -O2 -ffp-contract=off -I flux_tpu_torch/csrc/host ...
 // tests/test_torch_trace_host.py checks the sampler path with it,
-// tests/test_torch_nee_host.py the sweep of a scatter and a shadow ray. It
-// defines only what the header uses; nothing here runs on a card.
+// tests/test_torch_nee_host.py the sweep of a scatter and a shadow ray,
+// tests/test_torch_scan_host.py the walk of scan_walk.cuh. It defines only
+// what the headers use; nothing here runs on a card.
 #pragma once
 
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
 #include <cmath>
 
 using std::isfinite;
 using std::isnan;
+using std::max;
+using std::min;
+using std::signbit;
 
 #define __host__
 #define __device__
@@ -57,3 +62,10 @@ inline T __ldg(const T* p) {
 inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 
 inline long long clock64() { return 0; }
+
+// A warp of one lane.
+inline unsigned __activemask() { return 1u; }
+inline bool __any_sync(unsigned, bool p) { return p; }
+inline bool __all_sync(unsigned, bool p) { return p; }
+inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }

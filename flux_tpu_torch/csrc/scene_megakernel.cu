@@ -5,13 +5,15 @@
 // Replaces the TPU kernel flux_tpu/ops/pallas_kernel.py::_kernel in its scan
 // and triangle configurations:
 //   K5 scan + block skip   nearest hit and any-hit over Morton-sorted blocks
-//                          of 32 spheres with per-block AABBs, a second level
-//                          of boxes over 8 blocks, and front-to-back pruning
-//                          against the running winner t (:332-609);
+//                          of 32 spheres under a binary tree of boxes down
+//                          to runs of 16 spheres, walked front to back by a
+//                          warp as one and pruned against the running
+//                          winner t (:332-609; the walk is scan_walk.cuh);
 //   K6 triangle fold       Möller–Trumbore over Morton-sorted blocks of 16
 //                          triangles, the winner seeded with the sphere/plane
 //                          winner's t, a strictly-nearer merge, the any-hit
-//                          form, the same two-level skip (:611-762);
+//                          form, a two-level skip over groups of 8 blocks
+//                          (:611-762);
 //   K7 triangle lights     the uniform-area light sample, its density, the
 //                          MIS reverse density and the shrunk shadow ray
 //                          (:302-318; ops/nee.py, ops/shade.py), in
@@ -31,7 +33,8 @@
 // costs 52 bytes, a triangle 84; 16384 spheres are under 1 MB) and stay in
 // L2 and L1, so device memory is idle; what is scarce is the work per ray,
 // which without a skip grows linearly with the scene, and with it the
-// coherence of a warp, whose threads walk different blocks.
+// coherence of a warp, whose threads walk different blocks. Up to 16 planes
+// ride in the __constant__ record; more are a table in device memory.
 //
 // What the design does about that:
 //   * The tables live in device memory with no cap on their size, and each
@@ -39,10 +42,11 @@
 //     threads of a warp trace a few neighbouring pixels and their samples
 //     (the launch plan of flux_trace.cuh), so they mostly walk the same
 //     blocks and a load is one broadcast.
-//   * The skip is a per-thread slab test: a thread folds a block only if its
-//     own ray enters the block's box at or before its running winner t
+//   * The skip is a per-thread slab test: a thread folds a run of spheres
+//     (a triangle block) only if its own ray enters its box, and every box
+//     above it, at or before its running winner t
 //     (t0 <= cap for nearest hits, so that an equal-t candidate with a lower
-//     index is still seen; t0 < t_max for shadow rays). A block a thread
+//     index is still seen; t0 < t_max for shadow rays). What a thread
 //     skips cannot hold that thread's winner, so the result is bit-equal to
 //     the fold over every block. For that to hold against the float32 sphere
 //     test as computed, not as meant, the box is widened by that test's own
@@ -51,16 +55,18 @@
 //   * The triangle skip is engaged by the table's block count (the
 //     wrapper's TRI_SKIP_ENGAGE): in a closed room every ray enters every
 //     box, and with 3 blocks the tests only cost.
-//   * No vote, no shared-memory staging and no barrier sits inside the
-//     bounce loop, so a thread whose path has died simply leaves (the TPU
-//     kernel's tile-wide any() has no counterpart here). A NaN slab value
-//     (0·inf on an axis-parallel ray) counts as "enter"; a NaN box (an
-//     all-pad block) is empty.
+//   * No shared-memory staging and no barrier sits inside the bounce loop,
+//     so a thread whose path has died simply leaves (the TPU kernel's
+//     tile-wide any() has no counterpart here); the sphere walk's votes are
+//     among the lanes that reach it together, so none waits for a lane that
+//     has left. A NaN slab value (0·inf on an axis-parallel ray) counts as
+//     "enter"; a NaN box (an all-pad block) is empty.
 //   * The winner is carried as (t, original index, table slot) in registers
 //     and its material is fetched once after the walk; the TPU kernel's
 //     eleven-field carry in scratch memory has no counterpart.
 //   * Ties: among spheres, and among triangles, the lowest original index
-//     wins equal t (an explicit compare, since the walk is in Morton order);
+//     wins equal t (an explicit compare, since the walk is in Morton or
+//     tree order);
 //     planes replace spheres, and triangles replace both, only at strictly
 //     smaller t. Shapes keep their original numbering (spheres, planes,
 //     triangles), so hit.shape, light_of and the shadow rays' exclusions need
@@ -71,25 +77,7 @@
 //     instantiations, and radiance is summed as in the sweep kernel: fixed
 //     order, no atomics, bit-identical from run to run.
 
-#include "flux_trace.cuh"
-
-#define FLUX_SCAN_BLOCK 32
-#define FLUX_TRI_BLOCK 16
-#define FLUX_SUPER 8  // blocks under one second-level box
-
-// Work counters behind the tracer's ten (per pixel, summed over samples):
-// sphere blocks a ray had to enter (its box entered at or before the final
-// hit; for a shadow ray the blocks entered if it came through, one if a
-// sphere stopped it), sphere blocks entered, sphere box tests made, the same
-// three for triangle blocks, and shadow folds started.
-#define CNT_SPH_NEEDED (FLUX_N_COUNTS + 0)
-#define CNT_SPH_ENTERED (FLUX_N_COUNTS + 1)
-#define CNT_SPH_TESTS (FLUX_N_COUNTS + 2)
-#define CNT_TRI_NEEDED (FLUX_N_COUNTS + 3)
-#define CNT_TRI_ENTERED (FLUX_N_COUNTS + 4)
-#define CNT_TRI_TESTS (FLUX_N_COUNTS + 5)
-#define CNT_SHADOW_FOLDS (FLUX_N_COUNTS + 6)
-#define FLUX_SCENE_N_COUNTS (FLUX_N_COUNTS + 7)
+#include "scan_walk.cuh"
 
 // Launch parameters, passed by value; mirrored by FluxGeom in
 // flux_tpu_torch/ops/scene_kernel.py. Every pointer is device memory.
@@ -100,7 +88,11 @@ struct FluxGeom {
   const float4* sph_mat;  // invert / radius, exponent, kind (as bits), 0
   const float4* sph_alb;  // color × param
   const float4* sph_box;  // per block: lo (w: 1 / least radius), hi (NaN for an all-pad block)
-  const float4* sph_sbox;  // per FLUX_SUPER blocks: lo, hi; null: one level of boxes
+  const float4* sph_tree;  // per node of the tree over runs of FLUX_SCAN_LEAF spheres
+  // Planes past FLUX_MAX_PLANES: n_planes rows; null: c_scene holds them.
+  const float4* pl_point;
+  const float4* pl_normal;  // as authored; exponent
+  const float4* pl_alb;  // color × param, kind (as bits)
   // Triangle table: n_tri_blocks × 16 entries.
   const float4* tri_v0;  // NaN on padding
   const float4* tri_e1;
@@ -109,7 +101,7 @@ struct FluxGeom {
   const float4* tri_n;  // unit normal, exponent
   const float4* tri_alb;  // color × param, kind (as bits)
   const float4* tri_box;
-  const float4* tri_sbox;
+  const float4* tri_sbox;  // per FLUX_SUPER blocks: lo, hi; null: one level of boxes
   // Lights (NEE): n_lights rows; the tri_* rows only with lights_have_tris.
   const float4* l_center;  // x, y, z, radius
   const float4* l_emit;
@@ -123,113 +115,31 @@ struct FluxGeom {
   const float4* l_n;  // unit normal, area
   const int* light_of;  // per shape: its light index, -1 if none
   int n_sph_blocks;
+  int sph_block_leaves;  // n_sph_blocks up to a power of two
+  int n_planes;
   int n_tri_blocks;
   int scan;  // spheres come from the table; else from c_scene, swept
   int ns_base;  // the scene's sphere count: planes are numbered from here
   int plane_row0;  // c_scene material row of plane 0
   int tri_base;  // triangles are numbered from here
-  int sph_skip;  // the AABB skip over sphere blocks is on
+  int sph_walk;  // 0: fold every sphere block; 1: test each block's box; 2: walk the tree
   int tri_skip;
   int n_lights;
   int lights_have_tris;
 };
 
-// What the slab test must allow for, so that a skipped block never holds a
-// hit the fold would have taken: the sphere test's own error. In a scene
-// with unit directions the quadratic takes a == 1, but |d| drifts from 1
-// along a path (the reference's matte frame scales with the normal's
-// length, and a grazing hit's normal is not quite unit); the a == 1 roots
-// are then exactly those of a sphere whose squared radius is larger by
-// (d·d - 1)·b², shifted along the ray by (|d| - 1)·b. Rounding of c adds a
-// few ulp of |o - c|² in the same way. `drift` is |d·d - 1| (0 where the
-// scene computes a); a ray that has drifted far is not skipped at all.
-struct RaySlack {
-  float drift;
-  bool always;  // enter every box
-};
-
-#define EPS_F32 0x1p-23f
-#define DRIFT_MAX 0x1p-10f
-
-__device__ __forceinline__ RaySlack ray_slack(V3 d) {
-  RaySlack rs;
-  rs.drift = c_scene.unit_d ? fabsf(dot3(d, d) - 1.0f) : 0.0f;
-  rs.always = !(rs.drift <= DRIFT_MAX);  // also a NaN direction
-  return rs;
+// The sphere table of a launch, walked as the launch asks.
+__device__ __forceinline__ SphereTable sphere_table(const FluxGeom& g) {
+  return SphereTable{g.sph_geo, g.sph_idx, g.sph_box, g.sph_tree, g.n_sph_blocks, g.sph_block_leaves, g.sph_walk};
 }
 
-// Slab test of one thread's ray against a box, with pruning against `cap`:
-// a block whose entry t0 lies beyond the thread's current winner (or at or
-// beyond a shadow ray's t_max, `strict`) cannot change its result. The box
-// is widened by what the tests inside may be off by: for spheres
-// (drift + 16 ulp)·D²/r_min, with D the distance to the box's farthest corner
-// and 1/r_min kept in lo.w (0 for triangle boxes), and 32 ulp·(1 + D²) for
-// rounding in general; the entry t0 is eased by the drift's shift. inv_d is
-// ±inf on an axis the ray is parallel to, and 0·inf is NaN there when the
-// origin lies on the slab plane: a NaN slab value counts as "enter".
-__device__ __forceinline__ bool box_enter(float4 lo, float4 hi, V3 o, V3 inv_d, float cap,
-                                          bool strict, RaySlack rs) {
-  if (isnan(lo.x)) return false;  // an empty box
-  if (rs.always) return true;
-  const float dx0 = lo.x - o.x, dx1 = hi.x - o.x;
-  const float dy0 = lo.y - o.y, dy1 = hi.y - o.y;
-  const float dz0 = lo.z - o.z, dz1 = hi.z - o.z;
-  const float far2 = fmaxf(dx0 * dx0, dx1 * dx1) + fmaxf(dy0 * dy0, dy1 * dy1) + fmaxf(dz0 * dz0, dz1 * dz1);
-  const float pad = (rs.drift + 16.0f * EPS_F32) * far2 * lo.w + 32.0f * EPS_F32 * (1.0f + far2);
-  const float tx0 = dx0 * inv_d.x, tx1 = dx1 * inv_d.x;
-  const float ty0 = dy0 * inv_d.y, ty1 = dy1 * inv_d.y;
-  const float tz0 = dz0 * inv_d.z, tz1 = dz1 * inv_d.z;
-  if (isnan(tx0) || isnan(tx1) || isnan(ty0) || isnan(ty1) || isnan(tz0) || isnan(tz1)) return true;
-  const float px = pad * fabsf(inv_d.x), py = pad * fabsf(inv_d.y), pz = pad * fabsf(inv_d.z);
-  const float t0 = fmaxf(fminf(tx0, tx1) - px, fmaxf(fminf(ty0, ty1) - py, fminf(tz0, tz1) - pz));
-  const float t1 = fminf(fmaxf(tx0, tx1) + px, fminf(fmaxf(ty0, ty1) + py, fmaxf(tz0, tz1) + pz));
-  const float t0_eased = t0 * (1.0f - rs.drift) - rs.drift * (1.0f + far2);
-  return t0 <= t1 && t1 > T_MIN && (strict ? t0_eased < cap : t0_eased <= cap);
-}
-
-// Calls fold(b) for every block whose box the ray enters (every block with
-// the skip off), in table order, re-reading `cap` before each test; stops
-// when fold returns true. With `sbox`, a group of FLUX_SUPER blocks is
-// tested as one box first: the group's box holds its blocks' boxes and the
-// cap only tightens, so a block a ray would enter lies in an entered group.
-template <class F>
-__device__ __forceinline__ void walk_blocks(const float4* __restrict__ box,
-                                            const float4* __restrict__ sbox, int n_blocks,
-                                            bool skip, V3 o, V3 inv_d, RaySlack rs,
-                                            const float& cap, bool strict, uint32_t& tests,
-                                            uint32_t& entered, F fold) {
-  if (!skip) {
-    for (int b = 0; b < n_blocks; ++b) {
-      entered += 1u;
-      if (fold(b)) return;
-    }
-    return;
-  }
-  const int group = sbox != nullptr ? FLUX_SUPER : n_blocks;
-  for (int b0 = 0, s = 0; b0 < n_blocks; b0 += group, ++s) {
-    if (sbox != nullptr) {
-      tests += 1u;
-      if (!box_enter(__ldg(&sbox[2 * s]), __ldg(&sbox[2 * s + 1]), o, inv_d, cap, strict, rs)) continue;
-    }
-    const int b1 = min(b0 + group, n_blocks);
-    for (int b = b0; b < b1; ++b) {
-      tests += 1u;
-      if (!box_enter(__ldg(&box[2 * b]), __ldg(&box[2 * b + 1]), o, inv_d, cap, strict, rs)) continue;
-      entered += 1u;
-      if (fold(b)) return;
-    }
-  }
-}
-
-// Blocks whose box the ray enters at or before `cap`: what a perfect skip
-// would still have to fold (the *_NEEDED counters).
-__device__ __forceinline__ uint32_t blocks_needed(const float4* __restrict__ box, int n_blocks,
-                                                  V3 o, V3 inv_d, RaySlack rs, float cap) {
-  uint32_t n = 0u;
-  for (int b = 0; b < n_blocks; ++b) {
-    if (box_enter(__ldg(&box[2 * b]), __ldg(&box[2 * b + 1]), o, inv_d, cap, false, rs)) n += 1u;
-  }
-  return n;
+// Plane j: the unbounded test num / den from the __constant__ record
+// (plane_t), or from the plane table in the same order.
+__device__ __forceinline__ float scene_plane_t(const FluxGeom& g, V3 o, V3 d, int j) {
+  if (g.pl_point == nullptr) return plane_t(o, d, j);
+  const float4 p = __ldg(&g.pl_point[j]), n = __ldg(&g.pl_normal[j]);
+  const float num = (p.x - o.x) * n.x + (p.y - o.y) * n.y + (p.z - o.z) * n.z;
+  return num / (d.x * n.x + d.y * n.y + d.z * n.z);
 }
 
 __device__ __forceinline__ V3 xyz(float4 v) { return V3{v.x, v.y, v.z}; }
@@ -280,39 +190,21 @@ struct SceneGeom {
     const RaySlack rs = ray_slack(d);
     RaySlack rs_tri = rs;  // Möller–Trumbore makes no assumption about |d|
     rs_tri.drift = 0.0f;
-    uint32_t tests = 0u, entered = 0u;  // dead unless counted
     // Spheres: (t, original index, slot); slot is the table entry in scan
     // mode and the index itself in sweep mode.
     float best_t = inf;
     int best_i = 0;
     int slot = -1;
     if (g.scan) {
-      walk_blocks(g.sph_box, g.sph_sbox, g.n_sph_blocks, g.sph_skip != 0, o, inv_d, rs, best_t, false,
-                  tests, entered, [&](int b) {
-                    for (int k = 0; k < FLUX_SCAN_BLOCK; ++k) {
-                      const int e = b * FLUX_SCAN_BLOCK + k;
-                      const float4 s = __ldg(&g.sph_geo[e]);
-                      const int idx = __ldg(&g.sph_idx[e]);
-                      float t;
-                      if (sphere_t(o, d, a, inv_a, s.x, s.y, s.z, s.w, prev == idx, &t) &&
-                          (t < best_t || (t == best_t && idx < best_i))) {
-                        best_t = t;
-                        best_i = idx;
-                        slot = e;
-                      }
-                    }
-                    return false;
-                  });
-      cnt.add(CNT_SPH_TESTS, tests);
-      cnt.add(CNT_SPH_ENTERED, entered);
+      scan_nearest(sphere_table(g), o, d, a, inv_a, inv_d, rs, prev, best_t, best_i, slot, cnt);
     } else {
       sweep_spheres_nearest(o, d, a, inv_a, prev, &best_t, &best_i);
       slot = best_i;
     }
     // Planes, in order, only at strictly smaller t.
     int pl = -1;
-    for (int j = 0; j < c_scene.n_planes; ++j) {
-      const float t = plane_t(o, d, j);
+    for (int j = 0; j < g.n_planes; ++j) {
+      const float t = scene_plane_t(g, o, d, j);
       if (t > T_MIN && prev != g.ns_base + j && t < best_t) {
         best_t = t;
         pl = j;
@@ -326,10 +218,9 @@ struct SceneGeom {
     int tr_slot = -1;
     if (g.n_tri_blocks > 0) {
       const int prev_tri = prev - g.tri_base;
-      tests = 0u;
-      entered = 0u;
+      uint32_t tests = 0u, entered = 0u;  // dead unless counted
       walk_blocks(g.tri_box, g.tri_sbox, g.n_tri_blocks, g.tri_skip != 0, o, inv_d, rs_tri, tr_t, false,
-                  tests, entered, [&](int b) {
+                  tests, entered, cnt, NO_LAPS, [&](int b) {
                     for (int k = 0; k < FLUX_TRI_BLOCK; ++k) {
                       const int e = b * FLUX_TRI_BLOCK + k;
                       const int idx = __ldg(&g.tri_idx[e]);
@@ -350,10 +241,10 @@ struct SceneGeom {
     const bool use_tri = tr_t < best_t;
     const float t_hit = use_tri ? tr_t : best_t;
     if constexpr (C::ON) {
-      if (g.scan) cnt.add(CNT_SPH_NEEDED, blocks_needed(g.sph_box, g.n_sph_blocks, o, inv_d, rs, t_hit));
-      if (g.n_tri_blocks > 0) {
-        cnt.add(CNT_TRI_NEEDED, blocks_needed(g.tri_box, g.n_tri_blocks, o, inv_d, rs_tri, t_hit));
-      }
+      long long t = cnt.now();
+      if (g.scan) count_spheres_needed(sphere_table(g), o, inv_d, rs, t_hit, false, cnt);
+      if (g.n_tri_blocks > 0) cnt.add(CNT_TRI_NEEDED, boxes_needed(g.tri_box, g.n_tri_blocks, o, inv_d, rs_tri, t_hit));
+      cnt.lap(CLK_NEEDED, t);
     }
     if (!isfinite(t_hit)) return false;
     const V3 p = V3{o.x + t_hit * d.x, o.y + t_hit * d.y, o.z + t_hit * d.z};
@@ -363,6 +254,14 @@ struct SceneGeom {
       const float4 nrm = __ldg(&g.tri_n[tr_slot]);
       const float4 alb = __ldg(&g.tri_alb[tr_slot]);
       h->shape = g.tri_base + tr_i;
+      h->n = xyz(nrm);
+      h->exponent = nrm.w;
+      h->alb = xyz(alb);
+      h->kind = __float_as_int(alb.w);
+    } else if (pl >= 0 && g.pl_point != nullptr) {
+      const float4 nrm = __ldg(&g.pl_normal[pl]);
+      const float4 alb = __ldg(&g.pl_alb[pl]);
+      h->shape = g.ns_base + pl;
       h->n = xyz(nrm);
       h->exponent = nrm.w;
       h->alb = xyz(alb);
@@ -396,42 +295,26 @@ struct SceneGeom {
     const RaySlack rs = ray_slack(d);
     RaySlack rs_tri = rs;
     rs_tri.drift = 0.0f;
-    bool occ = false;
-    uint32_t tests = 0u, sph_entered = 0u, tri_entered = 0u;  // dead unless counted
+    uint32_t tri_entered = 0u;  // dead unless counted
     if (g.scan) {
-      walk_blocks(g.sph_box, g.sph_sbox, g.n_sph_blocks, g.sph_skip != 0, o, inv_d, rs, t_max, true,
-                  tests, sph_entered, [&](int b) {
-                    for (int k = 0; k < FLUX_SCAN_BLOCK; ++k) {
-                      const int e = b * FLUX_SCAN_BLOCK + k;
-                      const int idx = __ldg(&g.sph_idx[e]);
-                      if (idx == exclude) continue;
-                      const float4 s = __ldg(&g.sph_geo[e]);
-                      float t;
-                      if (sphere_t(o, d, a, inv_a, s.x, s.y, s.z, s.w, origin == idx, &t) && t < t_max) {
-                        occ = true;
-                        return true;
-                      }
-                    }
-                    return false;
-                  });
-      cnt.add(CNT_SPH_TESTS, tests);
-      cnt.add(CNT_SPH_ENTERED, sph_entered);
-      if (occ) {
-        cnt.add(CNT_SPH_NEEDED, 1u);
+      if (scan_occluded(sphere_table(g), o, d, a, inv_a, inv_d, rs, t_max, exclude, origin, cnt)) {
+        cnt.add(CNT_SH_SPH_NEEDED, 1u);
+        cnt.add(CNT_SH_SPH_LEAVES_NEEDED, 1u);
         return true;
       }
     } else if (sweep_spheres_occluded(o, d, a, inv_a, t_max, exclude, origin)) {
       return true;
     }
-    for (int j = 0; j < c_scene.n_planes; ++j) {
+    for (int j = 0; j < g.n_planes; ++j) {
       if (g.ns_base + j == exclude || g.ns_base + j == origin) continue;
-      const float t = plane_t(o, d, j);
+      const float t = scene_plane_t(g, o, d, j);
       if (t > T_MIN && t < t_max) return true;
     }
     if (g.n_tri_blocks > 0) {
-      tests = 0u;
+      bool occ = false;
+      uint32_t tests = 0u;
       walk_blocks(g.tri_box, g.tri_sbox, g.n_tri_blocks, g.tri_skip != 0, o, inv_d, rs_tri, t_max, true,
-                  tests, tri_entered, [&](int b) {
+                  tests, tri_entered, cnt, NO_LAPS, [&](int b) {
                     for (int k = 0; k < FLUX_TRI_BLOCK; ++k) {
                       const int e = b * FLUX_TRI_BLOCK + k;
                       const int sidx = g.tri_base + __ldg(&g.tri_idx[e]);
@@ -454,7 +337,11 @@ struct SceneGeom {
       }
     }
     // It came through: it had to look into every block it entered.
-    cnt.add(CNT_SPH_NEEDED, sph_entered);
+    if constexpr (C::ON) {
+      long long t = cnt.now();
+      if (g.scan) count_spheres_needed(sphere_table(g), o, inv_d, rs, t_max, true, cnt);
+      cnt.lap(CLK_SH_NEEDED, t);
+    }
     cnt.add(CNT_TRI_NEEDED, tri_entered);
     return false;
   }
@@ -529,6 +416,8 @@ size_t flux_scene_geom_bytes(void) { return sizeof(FluxGeom); }
 int flux_scene_n_counts(void) { return FLUX_SCENE_N_COUNTS; }
 
 int flux_scene_block_sizes(void) { return FLUX_SCAN_BLOCK * 10000 + FLUX_TRI_BLOCK * 100 + FLUX_SUPER; }
+
+int flux_scene_scan_leaf(void) { return FLUX_SCAN_LEAF; }
 
 const char* flux_scene_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

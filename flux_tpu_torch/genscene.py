@@ -31,7 +31,7 @@ from .scene import (
     SphereData,
 )
 
-__all__ = ["sphere_field"]
+__all__ = ["sphere_field", "plane_ring"]
 
 
 def sphere_field(
@@ -121,6 +121,30 @@ def sphere_field(
             focal_distance=21.0,
             lens_radius=0.0,
         ),
+    )
+
+
+def plane_ring(sd: SceneData, n: int, radius: float = 40.0) -> SceneData:
+    """``sd`` with ``n`` more planes around the origin: a ring of walls at
+    ``radius``, facing inward and tilted a little toward the ground, cycling
+    through matte, glossy, reflective and dim emissive materials. A scene
+    past the sweep megakernel's 16 planes, which the scene megakernel takes
+    from its plane table."""
+    kinds = (
+        MaterialData(kind=MaterialKind.MATTE, color=(0.7, 0.6, 0.5), param=1.0),
+        MaterialData(kind=MaterialKind.GLOSSY, color=(0.5, 0.7, 0.6), param=0.9, exponent=30.0),
+        MaterialData(kind=MaterialKind.REFLECTIVE, color=(0.8, 0.8, 0.9), param=0.8),
+        MaterialData(kind=MaterialKind.EMISSIVE, color=(0.9, 0.8, 0.6), param=0.3),
+    )
+    walls = []
+    for k in range(n):
+        a = 2.0 * np.pi * (k + 0.5) / n
+        normal = (-float(np.cos(a)), 0.2, -float(np.sin(a)))
+        point = (radius * float(np.cos(a)), 0.0, radius * float(np.sin(a)))
+        walls.append(PlaneData(point=point, normal=normal, material=kinds[k % len(kinds)]))
+    return SceneData(
+        scene_name=f"{sd.scene_name}_planes{n}", output_settings=sd.output_settings, background=sd.background,
+        shapes=tuple(sd.shapes) + tuple(walls), camera_settings=sd.camera_settings, camera_data=sd.camera_data,
     )
 
 

@@ -3,9 +3,11 @@
 Each kernel source ``csrc/<name>.cu`` has a plain C interface. It is compiled
 at first use by ``nvcc`` into a shared library, keyed by a hash of the
 source, of every header it includes (``LIBRARIES``) and of the flags, and
-loaded with ``ctypes``. The library goes to ``build/flux_tpu_torch/`` beside
-the package. Nothing is built when a module is imported; only a launch on a
-CUDA tensor builds. :func:`build_many` compiles several sources at once, one
+loaded with ``ctypes``. In a checkout (``pyproject.toml`` beside the
+package, in a directory it may write) the library goes to
+``build/flux_tpu_torch/`` there; an installed package builds into the user's
+cache, ``~/.cache/flux_tpu_torch/``. Nothing is built when a module is
+imported; only a launch on a CUDA tensor builds. :func:`build_many` compiles several sources at once, one
 ``nvcc`` process each, all started together.
 
 The flags target Hopper (``sm_90a``) and keep IEEE float semantics: no fast
@@ -45,7 +47,14 @@ BUILD_LOG: dict = {}
 _LOADED: dict = {}
 
 
-BUILD_DIR = CSRC.parent.parent / "build" / "flux_tpu_torch"
+def _build_dir() -> Path:
+    root = CSRC.parent.parent
+    if (root / "pyproject.toml").is_file() and os.access(root, os.W_OK):
+        return root / "build" / "flux_tpu_torch"
+    return Path.home() / ".cache" / "flux_tpu_torch"
+
+
+BUILD_DIR = _build_dir()
 
 
 def _nvcc() -> str:
@@ -63,7 +72,7 @@ def _nvcc() -> str:
 # from, which the cache key covers beside the source itself.
 LIBRARIES = {
     "sweep_megakernel": ("flux_trace.cuh",),
-    "scene_megakernel": ("flux_trace.cuh",),
+    "scene_megakernel": ("flux_trace.cuh", "scan_walk.cuh"),
 }
 
 
@@ -88,7 +97,7 @@ def build_many(names) -> list:
         libs.append(lib)
         log = lib.with_suffix(".log")
         if lib.exists():
-            BUILD_LOG[name] = {"seconds": 0.0, "ptxas": log.read_text() if log.exists() else ""}
+            BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": log.read_text() if log.exists() else ""})
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")

@@ -257,17 +257,24 @@ def intersect(scene: SceneTensors, o: Vec3, d: Vec3, prev=None) -> Hit:
         best_inv_r = torch.where(cond, inv_r_i, best_inv_r)
         best_pn = vwhere(cond, pn_i, best_pn)
 
-    for i in range(ns):
-        cx, cy, cz = (scene.sphere_center[i, k] for k in range(3))
-        radius = scene.sphere_radius[i]
-        inv_r = scene.sphere_invert[i] / radius
+    # The spheres in runs tested together (each by the same float32
+    # operations as alone): the first of a run's least t, folded in at
+    # strictly smaller t, is the winner of the sphere-by-sphere sweep.
+    ctr, rad = scene.sphere_center, scene.sphere_radius
+    inv_r = scene.sphere_invert / rad
+    ids = torch.arange(ns, dtype=torch.int32, device=o.x.device)
+    for k0, k1 in _sphere_runs(ns, o.x):
+        col = lambda v: _column(v[k0:k1], o.x)
         t, valid = sphere_t(
-            o, d, a, inv_a, cx, cy, cz, radius,
-            on_self=None if prev is None else prev == i,
+            o, d, a, inv_a, col(ctr[:, 0]), col(ctr[:, 1]), col(ctr[:, 2]), col(rad),
+            on_self=None if prev is None else prev == col(ids),
         )
-        cond = valid & (t < best_t)
-        best_t = torch.where(cond, t, best_t)
-        take(cond, i, Vec3(cx, cy, cz), inv_r, best_pn)
+        t_run = torch.where(valid, t, float("inf")).amin(dim=0)
+        i = torch.where(valid & (t == t_run), col(ids), ns).amin(dim=0)
+        cond = valid.any(dim=0) & (t_run < best_t)
+        i = torch.where(cond, i, 0).long()
+        best_t = torch.where(cond, t_run, best_t)
+        take(cond, i.int(), Vec3(ctr[i, 0], ctr[i, 1], ctr[i, 2]), inv_r[i], best_pn)
 
     for j in range(npl):
         i = ns + j
@@ -355,16 +362,19 @@ def _plane_occluded(scene: SceneTensors, o: Vec3, d: Vec3, t_max, exclude_idx, o
 def fold_occluded_block(o, d, a, inv_a, occ, ctr, rad, t_max, exclude_idx, idx, origin_idx=None):
     """Fold spheres ``ctr`` (K, 3) / ``rad`` (K,) whose shape indices are
     ``idx`` (a sequence of ints, or an int tensor of a Morton-sorted block)
-    into an any-hit occlusion mask: one OR per sphere, no winner. The sphere
-    the shadow ray originates on (``origin_idx``) takes its exact ``c = 0``,
-    so a genuine self-occlusion through its interior still counts."""
-    for k in range(len(idx)):
-        i = idx[k]
+    into an any-hit occlusion mask: one OR per sphere, no winner, the
+    spheres of a run tested together. The sphere the shadow ray originates
+    on (``origin_idx``) takes its exact ``c = 0``, so a genuine
+    self-occlusion through its interior still counts."""
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=ctr.device)
+    for k0, k1 in _sphere_runs(len(idx), occ):
+        col = lambda v: _column(v[k0:k1], occ)
+        ids = col(idx)
         t, valid = sphere_t(
-            o, d, a, inv_a, ctr[k, 0], ctr[k, 1], ctr[k, 2], rad[k],
-            on_self=None if origin_idx is None else origin_idx == i,
+            o, d, a, inv_a, col(ctr[:, 0]), col(ctr[:, 1]), col(ctr[:, 2]), col(rad),
+            on_self=None if origin_idx is None else origin_idx == ids,
         )
-        occ = occ | (valid & (t < t_max) & (exclude_idx != i))
+        occ = occ | (valid & (t < t_max) & (exclude_idx != ids)).any(dim=0)
     return occ
 
 
@@ -593,26 +603,47 @@ def scan_carry_init(like: torch.Tensor):
     return (torch.full_like(like, float("inf")), zi, zi, zf, Vec3(zf, zf, zf), Vec3(zf, zf, zf), zf)
 
 
+def _sphere_runs(n_spheres: int, like: torch.Tensor):
+    """Runs of spheres a block fold tests at once, as (start, stop): a run of
+    ``m`` spheres holds ``m × like.numel()`` values in each temporary, at most
+    about 2^20 (and one sphere at a time for larger lanes)."""
+    m = max(1, min(n_spheres, (1 << 20) // max(like.numel(), 1)))
+    return [(k, min(k + m, n_spheres)) for k in range(0, n_spheres, m)]
+
+
+def _column(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A run's per-sphere values as a column that broadcasts against lanes."""
+    return v.reshape((-1,) + (1,) * like.dim())
+
+
 def fold_sphere_block(o, d, a, inv_a, carry, ctr, rad, inv_r_b, kind, exp, alb, idx, prev=None):
     """Fold one ``SCAN_BLOCK`` of spheres into the winner carry. ``ctr`` and
     ``alb`` are (SCAN_BLOCK, 3), the rest (SCAN_BLOCK,); ``idx`` is each
     entry's original sphere index. Equal-t ties keep the lowest original
-    index, whatever the visit order. ``prev`` is the sphere the ray starts
-    on (its exact ``c = 0``)."""
+    index, whatever the visit order: the winner is the least (t, index)
+    among the valid candidates and the carry, so the spheres of a run are
+    tested together (each by the same float32 operations as alone) and
+    their least pair folded in. ``prev`` is the sphere the ray starts on (its
+    exact ``c = 0``)."""
     best_t, best_i, b_kind, b_exp, b_alb, b_ctr, b_inv_r = carry
-    for k in range(ctr.shape[0]):
-        cx, cy, cz = ctr[k, 0], ctr[k, 1], ctr[k, 2]
+    none = torch.iinfo(torch.int32).max
+    for k0, k1 in _sphere_runs(ctr.shape[0], best_t):
+        col = lambda v: _column(v[k0:k1], best_t)
+        ids = col(idx)
         t, valid = sphere_t(
-            o, d, a, inv_a, cx, cy, cz, rad[k],
-            on_self=None if prev is None else prev == idx[k],
+            o, d, a, inv_a, col(ctr[:, 0]), col(ctr[:, 1]), col(ctr[:, 2]), col(rad),
+            on_self=None if prev is None else prev == ids,
         )
-        cond = valid & ((t < best_t) | ((t == best_t) & (idx[k] < best_i)))
-        best_t = torch.where(cond, t, best_t)
-        best_i = torch.where(cond, idx[k], best_i)
+        t_run = torch.where(valid, t, float("inf")).amin(dim=0)
+        i_run, k = torch.where(valid & (t == t_run), ids, none).min(dim=0)
+        cond = valid.any(dim=0) & ((t_run < best_t) | ((t_run == best_t) & (i_run < best_i)))
+        k = k + k0
+        best_t = torch.where(cond, t_run, best_t)
+        best_i = torch.where(cond, i_run, best_i)
         b_kind = torch.where(cond, kind[k], b_kind)
         b_exp = torch.where(cond, exp[k], b_exp)
         b_alb = vwhere(cond, Vec3(alb[k, 0], alb[k, 1], alb[k, 2]), b_alb)
-        b_ctr = vwhere(cond, Vec3(cx, cy, cz), b_ctr)
+        b_ctr = vwhere(cond, Vec3(ctr[k, 0], ctr[k, 1], ctr[k, 2]), b_ctr)
         b_inv_r = torch.where(cond, inv_r_b[k], b_inv_r)
     return (best_t, best_i, b_kind, b_exp, b_alb, b_ctr, b_inv_r)
 

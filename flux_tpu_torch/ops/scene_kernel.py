@@ -20,10 +20,11 @@ skips are run-time choices of one launch; the template instantiations are
 the H100 and how its design meets that.
 
 What this module does on the host, once per layout and light set: it packs
-the :class:`ScanLayout`, the :class:`TriLayout` and the light set into one
-float32 device buffer each (rows of 4 floats, the boxes of every block and of
-every group of 8 blocks behind them), and keeps the buffer beside the
-layout's host arrays.
+the :class:`ScanLayout` (with the binary tree of boxes over runs of
+``SCAN_LEAF`` of its spheres, see :func:`sphere_tree`), more than
+``MAX_PLANES`` planes, the :class:`TriLayout` (with the boxes of every group
+of 8 blocks) and the light set into one float32 device buffer each (rows of
+4 floats), and keeps the buffer beside the host arrays it was packed from.
 """
 
 from __future__ import annotations
@@ -40,34 +41,49 @@ from ..camera import CameraTensors
 from ..samplers.hash import MASK
 from ..scene import SceneTensors
 from . import build
-from .intersect import SCAN_BLOCK, TRI_SCAN_BLOCK, Intersector, ScanLayout, TriLayout
+from .intersect import SCAN_BLOCK, TRI_SCAN_BLOCK, Intersector, ScanLayout, TriLayout, _block_boxes
 from .nee import LightTensors
 from .sweep_kernel import COUNT_NAMES as TRACER_COUNT_NAMES
-from .sweep_kernel import FluxScene, check_launch, pack_scene, plan_launch
+from .sweep_kernel import MAX_PLANES, FluxScene, check_launch, pack_scene, plan_launch
 
 __all__ = [
     "render_block_scene",
     "FluxGeom",
+    "declare",
     "config_name",
     "pack_sphere_table",
+    "pack_plane_table",
     "pack_tri_table",
     "pack_light_table",
     "union_boxes",
+    "sphere_tree",
     "COUNT_NAMES",
     "N_COUNTS",
     "SUPER",
+    "SCAN_LEAF",
     "TRI_SKIP_ENGAGE",
     "tri_skip_engaged",
     "flops_lower_bound",
     "table_bytes",
 ]
 
-SUPER = 8  # blocks under one second-level box
-# The kernel's counters per pixel, in order (see the source): the tracer's
-# (work, then the cycles of each phase of a bounce), then the geometry's.
+SUPER = 8  # triangle blocks under one second-level box
+SCAN_LEAF = 16  # spheres under one leaf of the sphere tree (FLUX_SCAN_LEAF)
+# The kernel's counters per pixel, in order (csrc/scan_walk.cuh): the
+# tracer's (work, then the cycles of each phase of a bounce), then the
+# geometry's: sphere blocks of nearest folds (needed, walk units entered:
+# tree leaves or blocks, box tests), triangle blocks of all folds, shadow
+# folds, sphere blocks of shadow folds, the tree leaves needed and the
+# spheres tested (nearest, shadow); and the cycles of sphere box tests and
+# folds inside clk_nearest and clk_shadow, and of the counting launch's own
+# passes for the *_needed counters (inside clk_nearest, clk_shadow).
 COUNT_NAMES = TRACER_COUNT_NAMES + (
     "sphere_blocks_needed", "sphere_blocks_entered", "sphere_box_tests",
     "tri_blocks_needed", "tri_blocks_entered", "tri_box_tests", "shadow_folds",
+    "shadow_sphere_blocks_needed", "shadow_sphere_blocks_entered", "shadow_sphere_box_tests",
+    "sphere_leaves_needed", "shadow_sphere_leaves_needed", "sphere_tests", "shadow_sphere_tests",
+    "clk_sphere_boxes", "clk_sphere_folds", "clk_shadow_sphere_boxes", "clk_shadow_sphere_folds",
+    "clk_needed_walk", "clk_shadow_needed_walk",
 )
 N_COUNTS = len(COUNT_NAMES)
 # The triangle skip is engaged from this many triangle blocks on; below it
@@ -84,14 +100,14 @@ _SOURCE = "scene_megakernel"
 _SKIPS = {"scan_skip", "tri_skip", "two_level"}  # pack_geom's measurement switches
 
 _POINTERS = (
-    "sph_geo", "sph_idx", "sph_mat", "sph_alb", "sph_box", "sph_sbox",
+    "sph_geo", "sph_idx", "sph_mat", "sph_alb", "sph_box", "sph_tree", "pl_point", "pl_normal", "pl_alb",
     "tri_v0", "tri_e1", "tri_e2", "tri_idx", "tri_n", "tri_alb", "tri_box", "tri_sbox",
     "l_center", "l_emit", "l_pick", "l_cdf", "l_shape", "l_is_tri", "l_v0", "l_e1", "l_e2", "l_n",
     "light_of",
 )
 _INTS = (
-    "n_sph_blocks", "n_tri_blocks", "scan", "ns_base", "plane_row0", "tri_base", "sph_skip",
-    "tri_skip", "n_lights", "lights_have_tris",
+    "n_sph_blocks", "sph_block_leaves", "n_planes", "n_tri_blocks", "scan", "ns_base", "plane_row0", "tri_base",
+    "sph_walk", "tri_skip", "n_lights", "lights_have_tris",
 )
 
 
@@ -117,6 +133,8 @@ def _rows4(*cols) -> np.ndarray:
     as their bits; missing width is zero."""
     n = cols[0].shape[0]
     out = np.zeros((n, 4), np.float32)
+    if n == 0:
+        return out
     c = 0
     for col in cols:
         col = np.asarray(col)
@@ -164,24 +182,86 @@ def _concat(sections: dict):
     return (np.concatenate(parts) if parts else np.zeros(4, np.float32)), offsets
 
 
+def sphere_tree(leaf_box: np.ndarray) -> np.ndarray:
+    """The binary tree of boxes over runs of a sphere table's entries,
+    ``(2L - 1, 2, 4)`` float32 for ``L`` leaves (the runs up to a power of
+    two): node ``i``'s children are ``2i + 1`` and ``2i + 2``, the leaves
+    ``L - 1 + k`` are the runs' boxes ``leaf_box`` (``(n, 2, 4)``, lo.w
+    1 / r_min) in table order, then empty (NaN) boxes. A node's box is the
+    union of its children's, ignoring empty ones (empty where both are), its
+    lo.w the largest 1 / r_min below it, and its hi.w, as int32 bits, the
+    axis on which its children's centers lie farthest apart (bits 0-1) and
+    whether the second child is the lower one there (bit 2): the kernel
+    visits the child nearer along that axis first."""
+    nb = leaf_box.shape[0]
+    n_leaves = 1 << max(nb - 1, 0).bit_length()
+    tree = np.full((2 * n_leaves - 1, 2, 4), np.nan, np.float32)
+    tree[n_leaves - 1:n_leaves - 1 + nb] = leaf_box
+    tree[:, 1, 3] = 0.0
+    level = n_leaves - 1  # the first node of the level whose parents are filled next
+    while level > 0:
+        parents = np.arange((level - 1) // 2, level)
+        kids = tree[2 * parents + 1], tree[2 * parents + 2]
+        tree[parents, 0] = np.fmin(kids[0][:, 0], kids[1][:, 0])
+        tree[parents, 1, :3] = np.fmax(kids[0][:, 1, :3], kids[1][:, 1, :3])
+        tree[parents, 0, 3] = np.fmax(kids[0][:, 0, 3], kids[1][:, 0, 3])
+        centers = [(k[:, 0, :3] + k[:, 1, :3]) * np.float32(0.5) for k in kids]
+        gap = np.nan_to_num(centers[1] - centers[0])
+        axis = np.argmax(np.abs(gap), axis=1)
+        second_lower = gap[np.arange(len(parents)), axis] < 0
+        tree[parents, 1, 3] = (axis | second_lower.astype(np.int64) << 2).astype(np.int32).view(np.float32)
+        level = (level - 1) // 2
+    tree[:, 0, 3] = np.nan_to_num(tree[:, 0, 3])
+    return tree
+
+
+def _run_boxes(h: dict, run: int) -> np.ndarray:
+    """(n, 2, 4) boxes of the table's runs of ``run`` entries, as
+    scan_layout computes each block's (a run of 32), with 1 / (the least
+    radius of the run's real spheres) in lo.w (0 for a run of padding): the
+    slab test widens a box by the sphere test's error, which grows as 1/r."""
+    n = h["idx"].size // run
+    ctr, rad, idx = h["ctr"].reshape(n, run, 3), h["rad"].reshape(n, run), h["idx"].reshape(n, run)
+    real = idx >= 0
+    r3 = rad[..., None]
+    bmin, bmax = _block_boxes(ctr - r3, ctr + r3, real[..., None])
+    inv_r = np.where(real, np.float32(1.0) / rad, np.float32(np.nan))
+    inv_rmin = np.fmax.reduce(inv_r, axis=1).astype(np.float32)
+    return _boxes(bmin, bmax, np.where(np.isnan(inv_rmin), np.float32(0.0), inv_rmin))
+
+
 def pack_sphere_table(layout: ScanLayout):
-    """The kernel's sphere table from a ScanLayout's host arrays."""
+    """The kernel's sphere table from a ScanLayout's host arrays: the
+    spheres by block, each block's box and the tree of boxes over runs of
+    ``SCAN_LEAF`` spheres."""
     h = layout.host
     n = h["idx"].size
-    slo, shi = union_boxes(h["bmin"], h["bmax"])
-    # 1 / (least radius of the block's real spheres): the slab test widens a
-    # box by the sphere test's error, which grows as 1/r.
-    inv_r = np.where(h["idx"] >= 0, np.float32(1.0) / h["rad"], np.float32(np.nan))
-    inv_rmin = np.fmax.reduce(inv_r, axis=1).astype(np.float32)
-    inv_rmin = np.where(np.isnan(inv_rmin), np.float32(0.0), inv_rmin)
-    s_inv = np.nan_to_num(union_boxes(inv_rmin[:, None], inv_rmin[:, None])[1][:, 0])
     return _concat({
         "sph_geo": _rows4(h["ctr"].reshape(n, 3), h["rad"].reshape(n)),
         "sph_idx": h["idx"].reshape(n),
         "sph_mat": _rows4(h["inv_r"].reshape(n), h["exp"].reshape(n), h["kind"].reshape(n)),
         "sph_alb": _rows4(h["alb"].reshape(n, 3)),
-        "sph_box": _boxes(h["bmin"], h["bmax"], inv_rmin),
-        "sph_sbox": _boxes(slo, shi, s_inv.astype(np.float32)),
+        "sph_box": _run_boxes(h, SCAN_BLOCK),
+        "sph_tree": sphere_tree(_run_boxes(h, SCAN_LEAF)),
+    })
+
+
+def pack_plane_table(scene: SceneTensors, sweep: bool):
+    """The kernel's plane table: point; normal as authored and exponent;
+    albedo (color × param) and kind. The exponent is the one the plain
+    version's intersection gives the hit: in sweep mode with the two low
+    mantissa bits clear (where the sweep packs the kind), in scan mode as
+    authored."""
+    h = scene.host
+    rows = slice(scene.num_spheres, scene.num_spheres + scene.num_planes)
+    exp = h["mat_exp"][rows]
+    if sweep:
+        exp = (exp.view(np.uint32) & np.uint32(0xFFFFFFFC)).view(np.float32)
+    return _concat({
+        "pl_point": _rows4(h["plane_point"]),
+        "pl_normal": _rows4(h["plane_normal"], exp),
+        "pl_alb": _rows4((h["mat_color"] * h["mat_param"][:, None])[rows],
+                         h["mat_kind"][rows].astype(np.int32)),
     })
 
 
@@ -228,9 +308,13 @@ def pack_light_table(lights: LightTensors, n_shapes: int):
     return _concat(sections)
 
 
-def table_bytes(isect: Intersector, lights: Optional[LightTensors], n_shapes: int) -> int:
-    """Bytes of the packed tables a launch reads (each counted once)."""
+def table_bytes(isect: Intersector, lights: Optional[LightTensors], n_shapes: int,
+                scene: Optional[SceneTensors] = None) -> int:
+    """Bytes of the packed tables a launch reads (each counted once), with
+    ``scene`` its plane table (more than ``MAX_PLANES`` planes)."""
     total = 0
+    if scene is not None and scene.num_planes > MAX_PLANES:
+        total += pack_plane_table(scene, isect.mode == "sweep")[0].nbytes
     if isect.mode == "scan":
         total += pack_sphere_table(isect.layout)[0].nbytes
     if isect.tri_layout is not None:
@@ -254,7 +338,15 @@ def _device_table(host: dict, dev: torch.device, pack, *what):
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
-    lib = build.load(_SOURCE)
+    lib = declare(build.load(_SOURCE))
+    if lib.flux_scene_scan_leaf() != SCAN_LEAF:
+        raise RuntimeError("the sphere tree's leaf differs between Python and CUDA")
+    return lib
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C signatures of a loaded scene kernel library and checks
+    that its FluxScene, FluxGeom and counters match this module's."""
     for fn in ("flux_scene_scene_bytes", "flux_scene_geom_bytes"):
         getattr(lib, fn).restype = ctypes.c_size_t
         getattr(lib, fn).argtypes = []
@@ -288,6 +380,8 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int,  # split
         ctypes.c_void_p,  # stream
     ]
+    lib.flux_scene_scan_leaf.restype = ctypes.c_int
+    lib.flux_scene_scan_leaf.argtypes = []
     if (
         lib.flux_scene_scene_bytes() != ctypes.sizeof(FluxScene)
         or lib.flux_scene_geom_bytes() != ctypes.sizeof(FluxGeom)
@@ -311,9 +405,11 @@ def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTen
 
     The switches, read by the kernel only (the result is bit-equal either
     way): ``scan_skip`` turns the AABB skip over sphere blocks off (every
-    block is folded), ``two_level`` the second level of boxes over groups of
-    8 blocks; ``tri_skip`` forces the skip over triangle blocks on or off,
-    and by default (None) engages it by :func:`tri_skip_engaged`."""
+    block is folded), ``two_level`` the levels of boxes above the blocks
+    (the sphere tree; the triangles' groups of 8 blocks): without them each
+    block's box is tested; ``tri_skip`` forces the skip over triangle blocks
+    on or off, and by default (None) engages it by
+    :func:`tri_skip_engaged`."""
     geom = FluxGeom()
     keep = []
 
@@ -327,9 +423,11 @@ def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTen
     if scan:
         if isect.layout is None:
             raise ValueError("an Intersector in scan mode needs its ScanLayout")
-        point(*_device_table(isect.layout.host, dev, lambda: pack_sphere_table(isect.layout)),
-              skip=() if two_level else ("sph_sbox",))
+        point(*_device_table(isect.layout.host, dev, lambda: pack_sphere_table(isect.layout)))
         geom.n_sph_blocks = isect.layout.n_blocks
+        geom.sph_block_leaves = 1 << max(isect.layout.n_blocks - 1, 0).bit_length()
+    if scene.num_planes > MAX_PLANES:  # else they ride in the constant record
+        point(*_device_table(scene.host, dev, lambda: pack_plane_table(scene, not scan), "planes", scan))
     nt = scene.num_triangles
     if nt:
         if isect.tri_layout is None:
@@ -345,10 +443,11 @@ def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTen
         geom.n_lights = lights.num_lights
         geom.lights_have_tris = int(lights.has_tris)
     geom.scan = int(scan)
+    geom.n_planes = npl
     geom.ns_base = ns
     geom.plane_row0 = 0 if scan else ns
     geom.tri_base = ns + npl
-    geom.sph_skip = int(scan_skip)
+    geom.sph_walk = 0 if not scan_skip else 2 if two_level else 1
     geom.tri_skip = int(tri_skip_engaged(geom.n_tri_blocks) if tri_skip is None else tri_skip)
     return geom, keep
 
@@ -412,7 +511,7 @@ def render_block_scene(
             f"is sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}"
         )
     scan = isect.mode == "scan"
-    if not scan and scene.num_triangles == 0:
+    if not scan and scene.num_triangles == 0 and scene.num_planes <= MAX_PLANES:
         # Its launches would also be counted under the sweep megakernel's names.
         raise ValueError("a sweep without triangles is the sweep megakernel's launch (render_block_sweep)")
     n_pix = n_rows * img_w
@@ -430,7 +529,7 @@ def render_block_scene(
             raise ValueError(f"work_counts must be a contiguous int32 {(N_COUNTS, n_pix)} tensor on {dev}")
         counts_ptr = work_counts.data_ptr()
     lib = _library()
-    packed = pack_scene(scene, cam, spheres=not scan)
+    packed = pack_scene(scene, cam, spheres=not scan, planes=scene.num_planes <= MAX_PLANES)
     geom, keep = pack_geom(scene, isect, lights, dev, **skips)
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
     plan = plan_launch(lib.flux_scene_blocks_per_sm, dev, n_pix, n_samples, with_stats, lights is not None,
@@ -477,19 +576,24 @@ _OPS_PER_TRI_REVERSE_DENSITY = 9  # cos θ_l, pick·t², A·cosθ_l, the quotien
 
 def flops_lower_bound(scene: SceneTensors, isect: Intersector, n_samples: int, counts: dict, *,
                       with_stats: bool = False, physical: bool = False,
-                      tri_light_fraction: float = 0.0) -> int:
+                      tri_light_fraction: float = 0.0, by_blocks: bool = False) -> int:
     """A lower bound on the kernel's float32 operations for a launch that
     traced ``n_samples`` samples, from its work counters summed over the
     band (``counts`` by ``COUNT_NAMES``).
 
     Everything but the geometry is charged as the sweep megakernel's bound
-    charges it. The geometry is charged what a perfect skip would still
-    do: every sphere (triangle) of each block whose box a ray enters at or
-    before its final hit, and one box test for each such block; in sweep
-    mode every sphere for every bounce. ``tri_light_fraction`` is the share
-    of the light set's pick probability that lies on triangle lights: those
-    samples are charged the cheaper triangle sample."""
+    charges it. The geometry is charged what a perfect skip over the
+    table's finest boxes would still do: every sphere of each leaf of the
+    sphere tree (``SCAN_LEAF`` spheres; with ``by_blocks``, of each block of
+    32, the rule before the tree) and every triangle of each triangle block
+    whose box a ray enters at or before its final hit, and one box test for
+    each; in sweep mode every sphere for every bounce.
+    ``tri_light_fraction`` is the share of the light set's pick probability
+    that lies on triangle lights: those samples are charged the cheaper
+    triangle sample."""
     from . import sweep_kernel as sk
+
+    unit, size = ("blocks", SCAN_BLOCK) if by_blocks else ("leaves", SCAN_LEAF)
 
     base = sk.flops_lower_bound(
         scene, n_samples, counts["bounces"], with_stats=with_stats, physical=physical,
@@ -508,7 +612,8 @@ def flops_lower_bound(scene: SceneTensors, isect: Intersector, n_samples: int, c
         + counts["light_samples"] * ((1.0 - f) * cone + f * tri_sample)
         + counts["shadow_rays"] * (contrib + shadow_planes + shadow_spheres)
         + counts["reverse_densities"] * ((1.0 - f) * sk._OPS_PER_REVERSE_DENSITY + f * _OPS_PER_TRI_REVERSE_DENSITY)
-        + counts["sphere_blocks_needed"] * (SCAN_BLOCK * sk._OPS_PER_SPHERE_TEST + _OPS_PER_BOX_TEST)
+        + (counts[f"sphere_{unit}_needed"] + counts[f"shadow_sphere_{unit}_needed"])
+        * (size * sk._OPS_PER_SPHERE_TEST + _OPS_PER_BOX_TEST)
         + counts["tri_blocks_needed"] * (TRI_SCAN_BLOCK * _OPS_PER_TRIANGLE_TEST + _OPS_PER_BOX_TEST)
         + (counts["bounces"] + counts["shadow_folds"]) * _OPS_PER_RAY_INVERSE
     )

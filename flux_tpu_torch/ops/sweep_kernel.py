@@ -146,7 +146,8 @@ def config_name(with_stats: bool, nee: bool, physical: bool) -> str:
     return "sweep" + "+nee" * nee + "+physical" * physical + "+stats" * with_stats
 
 
-def pack_scene(scene: SceneTensors, cam: CameraTensors, *, spheres: bool = True) -> FluxScene:
+def pack_scene(scene: SceneTensors, cam: CameraTensors, *, spheres: bool = True,
+               planes: bool = True) -> FluxScene:
     """The kernels' constant record, from the float32 host copies of the
     scene and camera. Albedo is the float32 product color × param. With
     ``spheres`` (the sweep) the record holds the spheres and, behind their
@@ -155,12 +156,14 @@ def pack_scene(scene: SceneTensors, cam: CameraTensors, *, spheres: bool = True)
     there. Without (the scene megakernel's scan, whose spheres live in a
     device table) it holds the planes only, their material rows from row 0
     and their exponents as authored, as the plain scan gathers them.
-    Triangle rows are never part of it."""
-    ns, npl = (scene.num_spheres if spheres else 0), scene.num_planes
+    Without ``planes`` it holds none (the scene megakernel reads more than
+    ``MAX_PLANES`` from a device table). Triangle rows are never part of
+    it."""
+    ns, npl = (scene.num_spheres if spheres else 0), (scene.num_planes if planes else 0)
     if ns > MAX_SPHERES or npl > MAX_PLANES:
         raise ValueError(
             f"the sweep takes at most {MAX_SPHERES} spheres and {MAX_PLANES} planes, "
-            f"got {ns} and {npl}; more spheres need accel='scan'"
+            f"got {ns} and {npl}; more spheres need accel='scan', more planes the scene megakernel"
         )
     h, c = scene.host, cam.host
     st = FluxScene()
@@ -169,10 +172,10 @@ def pack_scene(scene: SceneTensors, cam: CameraTensors, *, spheres: bool = True)
     arr(st.sph)[:ns, :3] = h["sphere_center"][:ns]
     arr(st.sph)[:ns, 3] = h["sphere_radius"][:ns]
     arr(st.sph_invert)[:ns] = h["sphere_invert"][:ns]
-    arr(st.pl_point)[:npl, :3] = h["plane_point"]
-    arr(st.pl_normal)[:npl, :3] = h["plane_normal"]
+    arr(st.pl_point)[:npl, :3] = h["plane_point"][:npl]
+    arr(st.pl_normal)[:npl, :3] = h["plane_normal"][:npl]
     n = ns + npl
-    rows = slice(0, n) if spheres else slice(scene.num_spheres, scene.num_spheres + npl)
+    rows = np.r_[0:ns, scene.num_spheres:scene.num_spheres + npl]
     arr(st.alb)[:n, :3] = (h["mat_color"] * h["mat_param"][:, None])[rows]
     exp = h["mat_exp"][rows]
     if spheres:

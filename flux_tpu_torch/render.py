@@ -14,10 +14,10 @@ for the light pick) and gates the light sample off at the final depth.
 
 The ``Renderer`` renders a band of rows through
 :func:`flux_tpu_torch.ops.sweep_kernel.render_block_sweep` (the sweep over
-at most 64 spheres, no triangles) or
+at most 64 spheres and 16 planes, no triangles) or
 :func:`flux_tpu_torch.ops.scene_kernel.render_block_scene` (the scan over a
-sphere table of any size, and triangles): the CUDA kernel on the card, its
-plain version on the CPU. Pixel averaging and the
+sphere table of any size, any number of planes, and triangles): the CUDA
+kernel on the card, its plain version on the CPU. Pixel averaging and the
 ``max_to_one`` tone map (trace.rs:85-87) happen in :func:`finalize` once all
 samples of a pixel are summed.
 """
@@ -35,6 +35,7 @@ from .constants import SALT_AA, SALT_BOUNCE, SALT_LENS, SALT_NEE, SALT_NEEPICK
 from .ops.intersect import Intersector, scan_layout, tri_layout
 from .ops.nee import LightTensors, extract_lights
 from .ops.shade import PathState, bounce
+from .ops.sweep_kernel import MAX_PLANES, MAX_SPHERES
 from .samplers.hash import MASK, hash_combine, randfloat
 from .samplers.patterns import bounce_point, cmj_point
 from .samplers.warps import to_poisson_disc
@@ -47,8 +48,11 @@ __all__ = ["render_block", "finalize", "plan_chunks", "resolve_device", "Rendere
 # sweep. flux_tpu chose 64 for XLA's compile time (flux_tpu/render.py:50-52),
 # which does not bind here; the port keeps the number so that both packages
 # take the same path for the same scene (it is also the sweep kernel's
-# constant-memory capacity). Where the scan starts to win on the card is
-# still to be measured.
+# constant-memory capacity, MAX_SPHERES). On an NVIDIA H100 80GB HBM3 at
+# 700 W the sweep megakernel beats the scan at every size up to it: a
+# 50-row band of sphere_field(n - 1) at 64 spp takes the scan 1.36, 1.18,
+# 1.23 and 1.13 times the sweep's time for n = 16, 32, 48, 64 spheres
+# (chip_smoke.py phase 12).
 SCAN_AUTO_THRESHOLD = 64
 
 
@@ -175,10 +179,17 @@ class Renderer:
     at full sample depth (the contract of ``flux_tpu.render.Renderer``).
 
     ``accel`` picks the sphere intersection: ``"sweep"`` (every sphere, from
-    constant memory on the card; at most 64), ``"scan"`` (Morton-sorted
-    blocks with an AABB skip; any number), or None for the scan above
-    ``SCAN_AUTO_THRESHOLD`` spheres. Triangles fold in after either. The
+    constant memory on the card), ``"scan"`` (Morton-sorted blocks under a
+    tree of boxes; any number), or None for the scan above
+    ``SCAN_AUTO_THRESHOLD`` spheres. A sweep asked for above the sweep's
+    ``MAX_SPHERES`` (64) spheres takes the scan, which gives the same bits;
+    ``.accel`` says which was taken. Triangles fold in after either. The
     ``Intersector`` and both block tables are built once, here.
+
+    A band goes to the sweep megakernel (K1-K4) for a sweep without
+    triangles over at most ``MAX_PLANES`` (16) planes, and to the scene
+    megakernel (K5-K7) otherwise, which reads any number of planes from a
+    table in device memory (``uses_sweep_kernel``).
 
     On the card each band is one launch of a megakernel with every
     requested sample. On the CPU the plain version runs, in sample chunks of
@@ -205,6 +216,8 @@ class Renderer:
             accel = "scan" if self.scene.num_spheres > SCAN_AUTO_THRESHOLD else "sweep"
         if accel not in ("sweep", "scan"):
             raise ValueError(f"unknown accel {accel!r}")
+        if self.scene.num_spheres > MAX_SPHERES:
+            accel = "scan"
         self.accel = accel
         self.isect = Intersector(
             layout=scan_layout(self.scene) if accel == "scan" else None,
@@ -239,8 +252,9 @@ class Renderer:
     @property
     def uses_sweep_kernel(self) -> bool:
         """True where a band goes to the sweep megakernel (K1-K4), False
-        where it goes to the scene megakernel (scan or triangles)."""
-        return self.accel == "sweep" and self.scene.num_triangles == 0
+        where it goes to the scene megakernel (scan, triangles, or more than
+        ``MAX_PLANES`` planes)."""
+        return self.accel == "sweep" and self.scene.num_triangles == 0 and self.scene.num_planes <= MAX_PLANES
 
     def render_rows_sum(self, row0: int, n_rows: int) -> torch.Tensor:
         """Radiance sum over all root² samples for a row band."""

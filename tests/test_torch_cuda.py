@@ -2,7 +2,8 @@
 sweep megakernel in each of its 8 instantiations (K1; K2 stats; K3 NEE; K4
 physical, and MIS with NEE; each of these with stats), and the scene
 megakernel in its scan (K5), triangle (K6) and triangle-light (K7)
-configurations, with the skip on and off and scan against sweep bitwise.
+configurations, with the skip on and off and scan against sweep bitwise,
+and scenes past the sweep megakernel's caps (planes, spheres).
 
 Marked ``cuda``: each test skips without a card. This file imports neither
 JAX nor ``flux_tpu``, so it also runs on a machine with the card and no JAX:
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from flux_tpu_torch.camera import camera_tensors
-from flux_tpu_torch.genscene import sphere_field
+from flux_tpu_torch.genscene import plane_ring, sphere_field
 from flux_tpu_torch.ops import scene_kernel
 from flux_tpu_torch.ops.intersect import Intersector, scan_layout, tri_layout
 from flux_tpu_torch.ops.nee import extract_lights
@@ -248,20 +249,83 @@ def test_scene_kernel_scan_equals_sweep_kernel_bitwise(card, n, nee, physical):
 
 @pytest.mark.cuda
 def test_scene_kernel_work_counts(card):
-    """The work counters: a perfect skip needs no more blocks than the walk
-    entered, the walk entered no more than it tested, and with the skip off
-    every block of every fold is entered."""
+    """The work counters: a perfect skip needs no more tree leaves than the
+    walk entered, the walk entered no more than it tested, and with the skip
+    off every block of every fold is entered."""
     sc, cam, isect, lights, w, h = _scene_setup(card, "spheres512", "scan", True)
     kw = dict(isect=isect, img_w=w, img_h=h, n_rows=2, n_samples=4, root=2, max_depth=4, lights=lights)
     counts = torch.zeros((scene_kernel.N_COUNTS, 2 * w), dtype=torch.int32, device=card)
     render_block_scene(sc, cam, h // 2, 0, 5, work_counts=counts, **kw)
     c = dict(zip(scene_kernel.COUNT_NAMES, counts.to(torch.int64).sum(dim=1).tolist()))
-    assert 0 < c["sphere_blocks_needed"] <= c["sphere_blocks_entered"] <= c["sphere_box_tests"]
+    # The tree's units are its leaves (runs of scene_kernel.SCAN_LEAF spheres).
+    assert 0 < c["sphere_leaves_needed"] <= c["sphere_blocks_entered"] <= c["sphere_box_tests"]
+    assert c["sphere_tests"] == scene_kernel.SCAN_LEAF * c["sphere_blocks_entered"]
+    assert c["sphere_blocks_needed"] > 0
     assert c["bounces"] >= 2 * w * 4 and c["shadow_folds"] > 0 and c["tri_blocks_entered"] == 0
+    assert 0 < c["shadow_sphere_leaves_needed"] <= c["shadow_sphere_blocks_entered"] <= c["shadow_sphere_box_tests"]
     render_block_scene(sc, cam, h // 2, 0, 5, work_counts=counts, scan_skip=False, **kw)
     c2 = dict(zip(scene_kernel.COUNT_NAMES, counts.to(torch.int64).sum(dim=1).tolist()))
     assert c2["bounces"] == c["bounces"] and c2["sphere_box_tests"] == 0
     assert c2["sphere_blocks_entered"] >= c2["bounces"] * isect.layout.n_blocks
+
+
+def _scan_scene(card, name, nee):
+    if name == "spheres512":
+        return _scene_setup(card, name, "scan", nee)
+    sd = sphere_field(1024, seed=4, width=400, height=300)
+    sc = compile_scene(sd, card)
+    cam = camera_tensors(sd.camera_settings, sd.camera_data, sd.output_settings.pixel_size, card)
+    isect = Intersector(layout=scan_layout(sc), mode="scan")
+    return sc, cam, isect, (extract_lights(sd, card) if nee else None), 400, 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spheres512", "sphere_field(1024)"])
+@pytest.mark.parametrize("nee, stats", [(False, False), (True, False), (False, True)], ids=["K5", "K5+K3", "K5+K2"])
+def test_scan_walks_bitwise_equal(card, name, nee, stats):
+    """The scan's sphere walk: the tree of boxes walked front to back, one
+    level of block boxes and the fold over every block give the same bits
+    on a full-width band (the fold keeps the lowest (t, index); a skipped
+    node's widened box holds every widened block box below it)."""
+    sc, cam, isect, lights, w, h = _scan_scene(card, name, nee)
+    kw = dict(isect=isect, img_w=w, img_h=h, n_rows=8, n_samples=8, root=4, max_depth=5, lights=lights,
+              with_stats=stats)
+    tree = render_block_scene(sc, cam, h // 2 - 4, 0, 3, **kw)
+    for off in (dict(two_level=False), dict(scan_skip=False)):
+        other = render_block_scene(sc, cam, h // 2 - 4, 0, 3, **kw, **off)
+        assert torch.equal(tree.view(torch.int32), other.view(torch.int32)), off
+    assert torch.isfinite(tree).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["20 planes, sweep", "20 planes, scan", "101 spheres, accel sweep"])
+def test_scenes_past_the_sweeps_caps(card, case):
+    """Scenes that the sweep megakernel's constant memory cannot hold (more
+    than 16 planes, more than 64 spheres) render on the card through the
+    scene megakernel, against the plain version at the scene kernel's gate;
+    a sweep asked for over 101 spheres takes the scan, bitwise equal to the
+    scan asked for."""
+    if case.startswith("20 planes"):
+        sd = plane_ring(load_scene(os.path.join(SCENES, "demo2.yml")), 19)
+        accel = case.split(", ")[1]
+    else:
+        sd, accel = sphere_field(100, seed=2), "sweep"
+    r = Renderer(sd, 4, 5, seed=9, device=card, accel=accel)
+    taken = "sweep" if case == "20 planes, sweep" else "scan"
+    assert r.accel == taken and not r.uses_sweep_kernel
+    before = render_block_scene.launches[taken]
+    row0 = r.height // 2 - 2
+    k = r.render_rows_sum_range(row0, 4, 0, 16)
+    torch.cuda.synchronize()
+    assert render_block_scene.launches[taken] == before + 1
+    p = render_block(r.scene, r.cam, row0, 0, 9, img_w=r.width, img_h=r.height, n_rows=4, n_samples=16, root=4,
+                     max_depth=5, isect=r.isect)
+    assert torch.isclose(k, p, rtol=1e-4, atol=1e-5).float().mean() >= 0.99
+    fd = (finalize(k, root=4) - finalize(p, root=4)).abs()
+    assert fd.mean() < 1e-3 and (fd > 5e-3).float().mean() < 0.01
+    if case.startswith("101"):
+        scan = Renderer(sd, 4, 5, seed=9, device=card, accel="scan").render_rows_sum_range(row0, 4, 0, 16)
+        assert torch.equal(k.view(torch.int32), scan.view(torch.int32))
 
 
 # The NEE instantiations at their paths' launches, cut to 8 rows: (scene,

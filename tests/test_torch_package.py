@@ -2,6 +2,7 @@
 the kernel wrapper's CPU route, the scene loader and the CLI's output."""
 
 import dataclasses
+import fnmatch
 import os
 import re
 import subprocess
@@ -10,15 +11,17 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import tomllib
 import torch
 import yaml
 
 from flux_tpu.image import ppm_bytes as j_ppm_bytes
 from flux_tpu.scene import load_scene as j_load_scene
-from flux_tpu_torch import cli
+from flux_tpu_torch import cli, genscene
 from flux_tpu_torch.camera import camera_tensors
+from flux_tpu_torch.ops import build, scene_kernel
 from flux_tpu_torch.ops.scene_kernel import render_block_scene
-from flux_tpu_torch.ops.sweep_kernel import render_block_sweep
+from flux_tpu_torch.ops.sweep_kernel import pack_scene, render_block_sweep
 from flux_tpu_torch.render import Renderer, render_block
 from flux_tpu_torch.scene import MaterialData, MaterialKind, TriangleData, compile_scene, load_scene
 
@@ -118,6 +121,47 @@ def test_unported_options_raise(tmp_path, change, kwargs, accel):
         assert r.scene.num_triangles == 1 and np.abs(img - base).max() > 1e-3
     if change == MaterialKind.EMISSIVE:
         assert r.lights.has_tris and r.lights.kinds[-1] == "tri"
+
+
+@pytest.mark.parametrize("case", ["20 planes", "101 spheres, accel sweep"])
+def test_scenes_past_the_sweeps_caps_go_to_the_scene_kernel(case):
+    """The sweep megakernel holds at most 16 planes and 64 spheres in
+    constant memory; the reference has no such caps. A scene with more
+    planes goes to the scene megakernel (planes from its table), a sweep over
+    more spheres takes the scan, and the scene kernel's tables pack either
+    without raising."""
+    if case == "20 planes":
+        sd = genscene.plane_ring(load_scene(str(REPO / "scenes" / "demo2.yml")), 19)
+        r = Renderer(sd, 1, 2, device="cpu")
+        assert r.accel == "sweep" and r.scene.num_planes == 20
+    else:
+        sd = genscene.sphere_field(100, seed=2)
+        r = Renderer(sd, 1, 2, device="cpu", accel="sweep")
+        assert r.accel == "scan" and r.scene.num_spheres == 101
+    assert not r.uses_sweep_kernel
+    geom, keep = scene_kernel.pack_geom(r.scene, r.isect, None, "cpu")
+    assert geom.n_planes == r.scene.num_planes and geom.scan == (r.accel == "scan")
+    assert bool(geom.pl_point) == (r.scene.num_planes > 16)
+    rec = pack_scene(r.scene, r.cam, spheres=r.accel == "sweep", planes=r.scene.num_planes <= 16)
+    assert rec.n_spheres == (r.scene.num_spheres if r.accel == "sweep" else 0)
+    with pytest.raises(ValueError, match="at most"):
+        pack_scene(r.scene, r.cam)
+
+
+def test_package_ships_every_kernel_source_and_the_cli():
+    """An installed port builds its kernels: every file that the build
+    hashes (build.LIBRARIES: each source and the headers it includes) is
+    package data, the CLI has its console script, and the libraries go to
+    build/flux_tpu_torch/ in a checkout and to the user's cache elsewhere."""
+    meta = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = meta["tool"]["setuptools"]["package-data"]["flux_tpu_torch"]
+    files = {f"csrc/{name}.cu" for name in build.LIBRARIES}
+    files |= {f"csrc/{h}" for headers in build.LIBRARIES.values() for h in headers}
+    for f in sorted(files):
+        assert (REPO / "flux_tpu_torch" / f).is_file(), f
+        assert any(fnmatch.fnmatch(f, g) for g in globs), f"{f} is not package data"
+    assert meta["project"]["scripts"]["flux-tpu-torch"] == "flux_tpu_torch.cli:main"
+    assert build.BUILD_DIR == REPO / "build" / "flux_tpu_torch"
 
 
 def test_wrapper_takes_the_plain_path_on_cpu():

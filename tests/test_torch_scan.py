@@ -370,10 +370,13 @@ def j_load_scene_port(name):
 
 def test_packed_sphere_table_and_scan_scene_record():
     """What the CUDA kernel reads: sections on 16-byte bounds, the layout's
-    values in place, group boxes that hold their blocks' boxes (NaN boxes
-    ignored), 1/r_min beside each box; and the scan's constant record, which
-    holds the planes only, their material rows from row 0, exponents as
-    authored."""
+    values in place, 1/r_min beside each box, a tree over runs of SCAN_LEAF
+    spheres whose nodes hold their blocks' boxes (NaN boxes ignored) with the
+    largest 1/r_min below them;
+    the plane table that takes more than 16 planes (as authored; in sweep
+    mode with the exponent's two low mantissa bits clear); and the scan's
+    constant record, which holds the planes only, their material rows from
+    row 0, exponents as authored."""
     r = Renderer(j_load_scene_port("spheres512"), 1, 2, device="cpu")
     L = r.isect.layout
     buf, off = scene_kernel.pack_sphere_table(L)
@@ -391,23 +394,44 @@ def test_packed_sphere_table_and_scan_scene_record():
     real = L.host["idx"] >= 0
     rmin = np.where(real, L.host["rad"], np.inf).min(axis=1)
     np.testing.assert_array_equal(box[:, 0, 3], (np.float32(1.0) / rmin).astype(np.float32))
-    ng = -(-L.n_blocks // scene_kernel.SUPER)
-    sbox = buf[off["sph_sbox"]: off["sph_sbox"] + 8 * ng].reshape(ng, 2, 4)
-    for g in range(ng):
-        kids = slice(g * scene_kernel.SUPER, (g + 1) * scene_kernel.SUPER)
-        assert (sbox[g, 0, :3] <= L.host["bmin"][kids]).all() and (sbox[g, 1, :3] >= L.host["bmax"][kids]).all()
-        assert sbox[g, 0, 3] == box[kids, 0, 3].max()
+    leaves = ti.SCAN_BLOCK // scene_kernel.SCAN_LEAF * 32  # runs of SCAN_LEAF spheres; 17 blocks up to 32
+    tree = buf[off["sph_tree"]: off["sph_tree"] + 8 * (2 * leaves - 1)].reshape(2 * leaves - 1, 2, 4)
+    # The nodes over whole blocks are the blocks' boxes, and the nodes three
+    # levels above those the unions of 8 blocks each.
+    np.testing.assert_array_equal(tree[31:31 + L.n_blocks, 0], box[:, 0])
+    for g, node in enumerate(range(3, 7)):
+        kids = slice(g * 8, (g + 1) * 8)
+        if g * 8 >= L.n_blocks:
+            assert np.isnan(tree[node, :, :3]).all()
+            continue
+        assert (tree[node, 0, :3] <= L.host["bmin"][kids]).all() and (tree[node, 1, :3] >= L.host["bmax"][kids]).all()
+        assert tree[node, 0, 3] == box[kids, 0, 3].max()
+    assert tree[0, 0, 3] == box[:, 0, 3].max()
     lo, hi = scene_kernel.union_boxes(np.float32([[np.nan] * 3, [1, 2, 3]]), np.float32([[np.nan] * 3, [4, 5, 6]]), 2)
     assert lo.tolist() == [[1, 2, 3]] and hi.tolist() == [[4, 5, 6]]
     assert np.isnan(scene_kernel.union_boxes(np.full((3, 3), np.nan, np.float32), np.full((3, 3), np.nan, np.float32))[0]).all()
+    plane_row = r.scene.num_spheres
+    for sweep in (False, True):
+        pbuf, poff = scene_kernel.pack_plane_table(r.scene, sweep)
+        nrm = pbuf[poff["pl_normal"]: poff["pl_normal"] + 4].reshape(1, 4)
+        np.testing.assert_array_equal(nrm[:, :3], r.scene.host["plane_normal"])
+        exp = r.scene.host["mat_exp"][plane_row:plane_row + 1]
+        if sweep:
+            exp = (exp.view(np.uint32) & np.uint32(0xFFFFFFFC)).view(np.float32)
+        np.testing.assert_array_equal(nrm[:, 3], exp)
+        alb = pbuf[poff["pl_alb"]: poff["pl_alb"] + 4]
+        assert alb[3].view(np.int32) == int(r.scene.host["mat_kind"][plane_row])
     rec = pack_scene(r.scene, r.cam, spheres=False)
     assert (rec.n_spheres, rec.n_planes) == (0, 1)
-    plane_row = r.scene.num_spheres
     assert rec.kind[0] == int(r.scene.host["mat_kind"][plane_row])
     assert rec.exponent[0] == float(r.scene.host["mat_exp"][plane_row])
+    assert pack_scene(r.scene, r.cam, spheres=False, planes=False).n_planes == 0
     with pytest.raises(ValueError, match="accel='scan'"):
         pack_scene(r.scene, r.cam)
     geom, keep = scene_kernel.pack_geom(r.scene, r.isect, None, "cpu", two_level=False)
-    assert geom.scan == 1 and geom.n_sph_blocks == 17 and geom.ns_base == 513 and geom.plane_row0 == 0
-    assert geom.sph_sbox is None and geom.sph_box and geom.tri_v0 is None and len(keep) == 1
+    assert geom.scan == 1 and geom.n_sph_blocks == 17 and geom.sph_block_leaves == 32 and geom.ns_base == 513
+    assert geom.n_planes == 1 and geom.plane_row0 == 0 and geom.pl_point is None and geom.sph_walk == 1
+    assert geom.sph_tree and geom.sph_box and geom.tri_v0 is None and len(keep) == 1
+    assert scene_kernel.pack_geom(r.scene, r.isect, None, "cpu")[0].sph_walk == 2
+    assert scene_kernel.pack_geom(r.scene, r.isect, None, "cpu", scan_skip=False)[0].sph_walk == 0
     assert scene_kernel.config_name("scan", False, True, True, False) == "scan+nee+stats"
