@@ -68,10 +68,12 @@ Phases, in order; any failure exits non-zero before the result line:
    width, root 4, depth 5, seed 42, at phase 3's gates: the scan on
    spheres512 (also with NEE over its 15 sphere lights, with MIS, with
    stats), triangles on mesh_ico and demo4, triangle lights on demo5 with
-   NEE and with MIS, each also with stats; two launches bitwise equal,
-   sample ranges add up; the same launch with the AABB skip off, and with
-   one level of boxes, must be bitwise equal; prints the share of blocks
-   entered; then the scan against the sweep megakernel, bitwise, on whole
+   NEE and with MIS, each also with stats, and on demo5 with 19 more planes
+   (the plane table); two launches bitwise equal, sample ranges add up; the
+   same launch with the AABB skip off, with one level of boxes, and with
+   every skip on (on demo5: the shadow ray folded where it is drawn, not
+   carried to the next bounce) must be bitwise equal; prints the share of
+   blocks entered; then the scan against the sweep megakernel, bitwise, on whole
    frames of ``sphere_field(24)`` and ``sphere_field(40)``; then the scenes
    past the sweep megakernel's caps through the Renderer, against the plain
    version: 20 planes (demo2 and ``genscene.plane_ring``) in sweep and scan
@@ -97,33 +99,38 @@ Phases, in order; any failure exits non-zero before the result line:
    bitwise (``render.SCAN_AUTO_THRESHOLD``);
 13. measurement of each scene-megakernel configuration at its path's launch
    shape (timed as in phase 6) beside its operation bound from the
-   kernel's work counters, the plain version's time on the launch's first
-   2-4 rows (the whole launch would take minutes; demo5's 1024-spp band is
-   run whole), and those rows of the path's own launch held against it; the
-   skips timed on and off.
+   kernel's work counters (and the bound as it was before a shadow ray
+   shared its origin terms with the next bounce's ray,
+   ``bound_ms_separate_folds``), the plain version's time on the launch's
+   first 2-4 rows (the whole launch would take minutes; demo5's 1024-spp
+   band is run whole), and those rows of the path's own launch held against
+   it; the skips timed on and off.
 14. design checks: the counting instantiation timed beside the timed one
    on the K1 and K7 bands (the work counters live only in the former), K1
    on 42 rows and K7 on 48 rows beside their 50-row bands (the cost per
    row as the last wave empties), and the triangle skip on and off on
    meshes of 2 to 80 triangle blocks and on the Cornell box, bitwise equal,
    beside the rule ``scene_kernel.TRI_SKIP_ENGAGE``;
-15. the scan, step by step, on its launches (K5, K5 + K3 and K5 + K2 as
-   phase 13 makes them, and phase 12's band): the scene source is built
-   again with design steps undone by text edits (in phase 2, beside the two
-   libraries; a variant whose edit no longer applies is left out, and said
-   so): the parent's two levels of boxes in table order; a tree over the
-   blocks walked by the warp as one, its children in table order and the
-   nearer child first; the tree down to runs of 16 spheres (the sources as
-   they are), and that tree walked by each lane alone, with the walks
-   compiled as functions of their own, with both children of a node tested
-   together, and with nearest folds on the parent's walk. The phase prints each build's registers, spills and
-   stack frame; from each variant's counting launch, per nearest and per
-   shadow fold, the sphere blocks and tree leaves a perfect skip needs, the
-   units entered, the spheres tested and the box tests, and the clock64
-   cycles of the walk's box tests and folds beside those of the bounce's
-   phases; then every variant, and the final build with one level of boxes
-   and with the skip off, timed in turns with its bits against the final
-   build's;
+15. the NEE arm of the scene kernel, step by step, on its launches (K7,
+   K7 + K4, K7 + K2 and K7 + K4 + K2 as phase 13 makes them; timed beside
+   them K6 on mesh1280 and K7 + K4 on demo5 with 19 more planes): the scene
+   source is built again with design steps undone or taken further by text
+   edits (in phase 2, beside the two libraries; a variant whose edit no
+   longer applies is left out, and said so): a, the NEE launches in sweep
+   mode on a policy of their own, apart from the scan's walk, with the
+   shadow ray folded where it is drawn; b, a with the shadow ray carried to
+   the next bounce and folded beside its ray; d, b with the triangle
+   table's padding slots passed over; e, d with the table staged in shared
+   memory (the sources as they are); with ``--parent``, the parent's build
+   beside them. The phase prints each
+   build's registers, spills and stack frame; from each build's counting
+   launch the clock64 split of a bounce (nearest, light, shadow, scatter,
+   MIS), shadow folds per bounce and per light sample, the share of light
+   samples that came through and the triangle slots tested per nearest and
+   per shadow fold (the path counters of every build must be equal, and
+   the bound's triangle counters of every build of these sources); then
+   every build, and the final build with the triangle skip forced on,
+   timed in turns with its bits against the final build's;
 16. with ``--parent DIR`` (the root of another checkout, such as the parent
    commit's, unpacked by ``git archive``): that checkout's package, imported
    under another name and built in phase 2, and this one render every row
@@ -710,9 +717,12 @@ def scene_setup(dev, sd, accel, nee):
 
 def stock(name: str):
     """A stock scene, or "planes20": demo2 with a ring of 19 more planes (20
-    in all, past the sweep megakernel's 16)."""
+    in all, past the sweep megakernel's 16), or "demo5planes": the Cornell
+    box with the same ring (19 planes, in the plane table)."""
     if name == "planes20":
         return genscene.plane_ring(stock("demo2"), 19)
+    if name == "demo5planes":
+        return genscene.plane_ring(stock("demo5"), 19)
     return load_scene(os.path.join(HERE, "scenes", f"{name}.yml"))
 
 
@@ -782,6 +792,8 @@ SCENE_CONFIGS = [
     ("demo5", "sweep", True, True, True),
     ("planes20", "sweep", False, False, False),
     ("planes20", "scan", True, False, False),
+    ("demo5planes", "sweep", True, False, False),
+    ("demo5planes", "sweep", True, True, True),
 ]
 
 
@@ -1071,6 +1083,8 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
                                            tri_light_fraction=tri_share)
     by_blocks = scene_kernel.flops_lower_bound(sc, isect, samples, c, with_stats=stats, physical=physical,
                                                tri_light_fraction=tri_share, by_blocks=True)
+    separate = scene_kernel.flops_lower_bound(sc, isect, samples, c, with_stats=stats, physical=physical,
+                                              tri_light_fraction=tri_share, separate_folds=True)
     n_shapes = sc.num_spheres + sc.num_planes + sc.num_triangles
     bytes_moved = (4 if stats else 3) * n_pix * 4 + ctypes.sizeof(FluxScene) + scene_kernel.table_bytes(
         isect, lights, n_shapes, sc)
@@ -1105,6 +1119,7 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
         "flops_lower_bound": flops, "bytes": bytes_moved, "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bound_ms_by_blocks": max(by_blocks / PEAK_FP32_FLOPS * 1e3, bytes_ms),
+        "bound_ms_separate_folds": max(separate / PEAK_FP32_FLOPS * 1e3, bytes_ms),
         "shape": f"{sd.scene_name} band {n_rows}x{w} px, {n_samples} spp, depth 5",
         **entered_share(c, isect),
     }
@@ -1199,172 +1214,66 @@ def phase_design(dev) -> dict:
     return res
 
 
-# ---- phase 15: the scan, step by step --------------------------------------
+# ---- phase 15: the scene kernel's NEE arm, step by step ---------------------
 
-# The design steps of the scan's sphere walk, each undone by a text edit of
-# the current sources (file, text in the sources, text in the variant): the
-# parent's walk, two levels of boxes in table order (its groups of 8 block
-# boxes are the tree's nodes over 8 blocks, or its root where there are
-# fewer); a, a tree over the blocks, walked by a warp as one, its children in
-# table order; b, the same walked nearer child first; c, the tree down to
-# runs of 16 spheres (the sources as they are); beside it c with each lane on
-# a path of its own, c with the sphere walks compiled as functions of their
-# own, d, c with both children of an entered node tested together, and e, c
-# with nearest folds back on the parent's walk.
-LEAF = "#define FLUX_SCAN_LEAF 16  // spheres under one leaf of the sphere tree"
-LEAF_32 = ("scan_walk.cuh", LEAF, LEAF.replace(" 16 ", " 32 "))
-TABLE_ORDER = ("scan_walk.cuh", "  return ((code >> 2) & 1) ^ (signbit(s) ? 1 : 0);",
-               "  (void)s;\n  return 0;")
-TABLE_ORDER_WALK = ("scan_walk.cuh",
-                    "    walk_tree(T.tree, T.block_leaves * FLUX_LEAVES_PER_BLOCK, o, inv_d, rs, cap, strict, tests, "
-                    "entered, cnt, clk,\n"
-                    "              [&](int leaf) { return fold(leaf * FLUX_SCAN_LEAF, FLUX_SCAN_LEAF); });",
-                    "    walk_blocks(T.box, T.tree + 2 * (max(T.block_leaves / FLUX_SUPER, 1) - 1), T.n_blocks, "
-                    "true, o, inv_d, rs, cap,\n"
-                    "                strict, tests, entered, cnt, clk, [&](int b) { return fold(b * FLUX_SCAN_BLOCK, "
-                    "FLUX_SCAN_BLOCK); });")
-WARP = ("scan_walk.cuh",
-        "__device__ __forceinline__ bool walk_any(unsigned group, bool p) { return __any_sync(group, p); }\n"
-        "__device__ __forceinline__ bool walk_all(unsigned group, bool p) { return __all_sync(group, p); }\n"
-        "__device__ __forceinline__ int walk_majority(unsigned group, int p) {\n"
-        "  return 2 * __popc(__ballot_sync(group, p)) > __popc(group) ? 1 : 0;\n}",
-        "__device__ __forceinline__ bool walk_any(unsigned, bool p) { return p; }\n"
-        "__device__ __forceinline__ bool walk_all(unsigned, bool p) { return p; }\n"
-        "__device__ __forceinline__ int walk_majority(unsigned, int p) { return p; }")
-CALLS = [("scan_walk.cuh", f"__device__ __forceinline__ {t} {f}(", f"__device__ __noinline__ {t} {f}(")
-         for t, f in (("void", "scan_nearest"), ("bool", "scan_occluded"))]
-# Step d: the tree walk with both children of an entered node tested together
-# (the text of the sources, then of the variant).
-PAIR_WALK = ("scan_walk.cuh", (
-    'template <class C, class F>\n'
-    '__device__ __forceinline__ void walk_tree(const float4* __restrict__ tree, int n_leaves, V3 o, V3 inv_d,\n'
-    '                                          RaySlack rs, const float& cap, bool strict, uint32_t& tests,\n'
-    '                                          uint32_t& entered, C& cnt, int clk, F fold) {\n'
-    '  const unsigned group = __activemask();\n'
-    '  const int first_leaf = n_leaves - 1;\n'
-    '  long long t = cnt.now();\n'
-    '  uint32_t trail = 0u;\n'
-    '  bool done = false;\n'
-    '  int i = 0;\n'
-    '  for (;;) {\n'
-    '    const float4 lo = __ldg(&tree[2 * i]), hi = __ldg(&tree[2 * i + 1]);\n'
-    '    tests += done ? 0u : 1u;\n'
-    '    const bool in = !done && box_enter(lo, hi, o, inv_d, cap, strict, rs);\n'
-    '    cnt.lap(clk, t);\n'
-    '    if (walk_any(group, in)) {\n'
-    '      if (i < first_leaf) {\n'
-    '        i = 2 * i + 1 + walk_majority(group, second_first(hi.w, inv_d));\n'
-    '        trail = (trail << 1) | 1u;\n'
-    '        continue;\n'
-    '      }\n'
-    '      if (in) {\n'
-    '        entered += 1u;\n'
-    '        done = fold(i - first_leaf);\n'
-    '        cnt.lap(clk + 1, t);\n'
-    '      }\n'
-    '      if (walk_all(group, done)) return;\n'
-    '    }\n'
-    '    while ((trail & 1u) == 0u) {  // climb past levels whose children are both done\n'
-    '      if (trail == 0u) return;\n'
-    '      trail >>= 1;\n'
-    '      i = (i - 1) >> 1;\n'
-    '    }\n'
-    '    trail ^= 1u;\n'
-    '    i = ((i - 1) ^ 1) + 1;  // the other child\n'
-    '  }\n'
-    '}\n'
-), (
-    'template <class C, class F>\n'
-    '__device__ __forceinline__ void walk_tree(const float4* __restrict__ tree, int n_leaves, V3 o, V3 inv_d,\n'
-    '                                          RaySlack rs, const float& cap, bool strict, uint32_t& tests,\n'
-    '                                          uint32_t& entered, C& cnt, int clk, F fold) {\n'
-    '  const unsigned group = __activemask();\n'
-    '  const int first_leaf = n_leaves - 1;\n'
-    '  long long t = cnt.now();\n'
-    '  uint32_t trail = 0u;\n'
-    '  bool done = false;\n'
-    '  int i = 0;\n'
-    '  float4 hi = __ldg(&tree[1]);\n'
-    '  tests += 1u;\n'
-    '  bool in = box_enter(__ldg(&tree[0]), hi, o, inv_d, cap, strict, rs);\n'
-    '  cnt.lap(clk, t);\n'
-    '  for (;;) {\n'
-    '    if (walk_any(group, in)) {\n'
-    '      if (i >= first_leaf) {\n'
-    '        if (in) {\n'
-    '          entered += 1u;\n'
-    '          done = fold(i - first_leaf);\n'
-    '          cnt.lap(clk + 1, t);\n'
-    '        }\n'
-    '        if (walk_all(group, done)) return;\n'
-    '      } else {\n'
-    '        const int l = 2 * i + 1;\n'
-    '        const float4 lo0 = __ldg(&tree[2 * l]), hi0 = __ldg(&tree[2 * l + 1]);\n'
-    '        const float4 lo1 = __ldg(&tree[2 * l + 2]), hi1 = __ldg(&tree[2 * l + 3]);\n'
-    '        tests += done ? 0u : 2u;\n'
-    '        const bool in0 = !done && box_enter(lo0, hi0, o, inv_d, cap, strict, rs);\n'
-    '        const bool in1 = !done && box_enter(lo1, hi1, o, inv_d, cap, strict, rs);\n'
-    '        cnt.lap(clk, t);\n'
-    '        const bool any0 = walk_any(group, in0), any1 = walk_any(group, in1);\n'
-    '        if (any0 || any1) {\n'
-    '          const int second = any0 && any1 ? walk_majority(group, second_first(hi.w, inv_d)) : any1 ? 1 : 0;\n'
-    '          trail = (trail << 1) | (any0 && any1 ? 1u : 0u);\n'
-    '          i = l + second;\n'
-    '          in = second ? in1 : in0;\n'
-    '          hi = second ? hi1 : hi0;\n'
-    '          continue;\n'
-    '        }\n'
-    '      }\n'
-    '    }\n'
-    '    while ((trail & 1u) == 0u) {  // climb past levels with nothing left to visit\n'
-    '      if (trail == 0u) return;\n'
-    '      trail >>= 1;\n'
-    '      i = (i - 1) >> 1;\n'
-    '    }\n'
-    '    trail ^= 1u;\n'
-    '    i = ((i - 1) ^ 1) + 1;  // the other child\n'
-    '    hi = __ldg(&tree[2 * i + 1]);\n'
-    '    tests += done ? 0u : 1u;\n'
-    '    in = !done && box_enter(__ldg(&tree[2 * i]), hi, o, inv_d, cap, strict, rs);\n'
-    '    cnt.lap(clk, t);\n'
-    '  }\n'
-    '}\n'
-))
-# Nearest folds on the parent's two levels in table order (the tree's nodes
-# over 8 blocks), shadow folds on the tree.
-NEAREST_IN_TABLE_ORDER = [
-    ("scan_walk.cuh", "// The nearest sphere of the table along (o, d)",
-     "template <class C, class F>\n"
-     "__device__ __forceinline__ void walk_in_table_order(const SphereTable& T, V3 o, V3 inv_d, RaySlack rs,\n"
-     "    const float& cap, bool strict, uint32_t& tests, uint32_t& entered, C& cnt, int clk, F fold) {\n"
-     "  const float4* groups = T.walk == 2 ? T.tree + 2 * (max(T.block_leaves / FLUX_SUPER, 1) - 1) : nullptr;\n"
-     "  walk_blocks(T.box, groups, T.n_blocks, T.walk != 0, o, inv_d, rs, cap, strict, tests, entered, cnt, clk,\n"
-     "              [&](int b) { return fold(b * FLUX_SCAN_BLOCK, FLUX_SCAN_BLOCK); });\n"
-     "}\n\n"
-     "// The nearest sphere of the table along (o, d)"),
-    ("scan_walk.cuh", "  walk_spheres(T, o, inv_d, rs, best_t, false,", "  walk_in_table_order(T, o, inv_d, rs, best_t, false,"),
+# The design steps of the NEE arm over the triangle table, each undone or
+# taken further by a text edit of the current sources (file, text in the
+# sources, text in the variant): a, the NEE launches in sweep mode on a
+# policy of their own (GEO_SWEEP), compiled apart from the scan's walk, the
+# shadow ray folded where it is drawn; b, a with the shadow ray carried to
+# the next bounce and folded beside its ray; d, b with the triangle table's
+# padding slots passed over; e, d with the table staged in shared memory
+# (the sources as they are). With --parent, the parent's build is timed
+# beside them.
+DEFER = ("scene_geom.cuh", "  static constexpr bool DEFER_SHADOW = GEO == GEO_SWEEP;",
+         "  static constexpr bool DEFER_SHADOW = false;")
+STAGED_LOOP = (
+    "    const float4* st = tri_stage();\n"
+    "    for (int e = 0; e < n_slots; ++e) {\n"
+    "      const float4 ra = st[e], rb = st[FLUX_TRI_STAGED + e], rc = st[2 * FLUX_TRI_STAGED + e];\n"
+    "      const int idx = __float_as_int(ra.w);\n"
+    "      // Padding (NaN vertices) is never hit, and its determinant would take\n"
+    "      // the division's slow path.\n"
+    "      if (idx < 0) continue;\n"
+    "      const V3 v0 = xyz(ra), e1 = xyz(rb), e2 = xyz(rc);\n")
+LOOP = (
+    "    for (int e = 0; e < n_slots; ++e) {\n"
+    "      const int idx = __ldg(&g.tri_idx[e]);\n"
+    "      if (idx < 0) continue;  // padding (NaN vertices): never hit\n"
+    "      const V3 v0 = xyz(__ldg(&g.tri_v0[e])), e1 = xyz(__ldg(&g.tri_e1[e])), e2 = xyz(__ldg(&g.tri_e2[e]));\n")
+UNSTAGED = [
+    ("scene_geom.cuh", "    if constexpr (GEO == GEO_SWEEP) {\n      float4* st = tri_stage();",
+     "    if constexpr (false) {\n      float4* st = tri_stage();"),
+    ("scene_geom.cuh", STAGED_LOOP, LOOP),
 ]
-PARENT_WALK = "the parent's walk: two levels, table order"
-FINAL = "c: the tree down to runs of 16 spheres"
-# name -> the edits that make it; FINAL is the sources as they are.
-SCAN_VARIANTS = {
-    PARENT_WALK: (TABLE_ORDER_WALK,),
-    "a: a tree over the blocks, table order": (TABLE_ORDER, LEAF_32),
-    "b: a tree over the blocks, nearer child first": (LEAF_32,),
-    "c, each lane on a path of its own": (WARP,),
-    "c, the walks as functions of their own": tuple(CALLS),
-    "d: c with both children of a node tested together": (PAIR_WALK,),
-    "e: c with nearest folds in table order": tuple(NEAREST_IN_TABLE_ORDER),
+PADDED = [UNSTAGED[0], ("scene_geom.cuh", STAGED_LOOP,
+                        LOOP.replace("      if (idx < 0) continue;  // padding (NaN vertices): never hit\n", ""))]
+FINAL = "e: d, the triangle table staged in shared memory"
+ARM_VARIANTS = {
+    "a: the sweep's NEE launches apart, the shadow ray folded where it is drawn": (DEFER,),
+    "b: a, the shadow ray folded beside the next bounce's ray": tuple(PADDED),
+    "d: b, the padding slots passed over": tuple(UNSTAGED),
     FINAL: (),
 }
-VARIANT_FILES = ("flux_trace.cuh", "scan_walk.cuh", "scene_megakernel.cu")
-# The scan's launches (seed 0, depth 5, 800 wide): its three rows of phase
-# 13 and phase 12's band of sphere_field(16384).
-SCAN_ROWS = {
-    "K5 scan": dict(name="spheres512", row0=300, n_rows=50, n_samples=64, root=8),
-    "K5+K3 scan+nee": dict(name="spheres512", row0=300, n_rows=50, n_samples=16, root=4, nee=True),
-    "K5+K2 scan+stats": dict(name="spheres512", row0=256, n_rows=128, n_samples=8, root=4, stats=True),
-    "sphere_field(16384) scan": dict(name="field16384", row0=300, n_rows=50, n_samples=16, root=4),
+PARENT = "the parent's build"
+VARIANT_FILES = ("flux_trace.cuh", "scan_walk.cuh", "scene_geom.cuh", "scene_megakernel.cu")
+# The NEE arm's launches (seed 0, depth 5, demo5 512 wide): its four rows of
+# phase 13, counted and timed; then rows timed beside them that the same
+# instantiations take: the triangle fold without NEE (mesh1280, K6) and the
+# Cornell box with 19 more planes (the plane table; 8 rows).
+ARM_ROWS = {
+    "K7 sweep+tri+nee+trilight": dict(name="demo5", row0=250, n_rows=50, n_samples=1024, root=32, nee=True),
+    "K7+K4 sweep+tri+nee+trilight+physical": dict(name="demo5", row0=250, n_rows=50, n_samples=64, root=8,
+                                                  nee=True, physical=True),
+    "K7+K2 sweep+tri+nee+trilight+stats": dict(name="demo5", row0=256, n_rows=128, n_samples=8, root=4, nee=True,
+                                               stats=True),
+    "K7+K4+K2 sweep+tri+nee+trilight+physical+stats": dict(name="demo5", row0=256, n_rows=128, n_samples=16,
+                                                           root=8, nee=True, physical=True, stats=True),
+}
+ARM_TIMED_ROWS = {
+    "K6 sweep+tri": dict(name="mesh1280", row0=300, n_rows=50, n_samples=16, root=4),
+    "K7+K4 on demo5 with 19 more planes": dict(name="demo5planes", row0=252, n_rows=8, n_samples=64, root=8,
+                                               nee=True, physical=True),
 }
 
 
@@ -1375,7 +1284,7 @@ def start_variant_builds() -> dict:
     Returns (process or None, library, start) by variant."""
     base = {f: (build.CSRC / f).read_text() for f in VARIANT_FILES}
     running = {}
-    for name, edits in SCAN_VARIANTS.items():
+    for name, edits in ARM_VARIANTS.items():
         if not edits:
             continue
         stale = [f for f, new, _ in edits if base[f].count(new) != 1]
@@ -1403,9 +1312,18 @@ def start_variant_builds() -> dict:
     return running
 
 
-def finish_variant_builds(running: dict) -> dict:
-    """Waits for the variants' builds: variant -> (library, ptxas report)."""
+def finish_variant_builds(running: dict, parent=None) -> dict:
+    """Waits for the variants' builds: variant -> (library, ptxas report);
+    with ``parent`` (its package, built) the parent's scene kernel too."""
     built = {}
+    if parent is not None:
+        # Declared as this package's: the same FluxScene and FluxGeom, and
+        # counters that are the first of this package's.
+        names = tuple(parent.ops.scene_kernel.COUNT_NAMES)
+        check(names == scene_kernel.COUNT_NAMES[:len(names)], "the parent's counters are not a prefix of these")
+        lib = ctypes.CDLL(str(parent.ops.build.build("scene_megakernel")))
+        built[PARENT] = (scene_kernel.declare(lib, n_counts=len(names)),
+                         parent.ops.build.BUILD_LOG["scene_megakernel"]["ptxas"])
     for name, (proc, lib, t0) in running.items():
         log_file = lib.with_suffix(".log")
         if proc is None:
@@ -1424,14 +1342,17 @@ def finish_variant_builds(running: dict) -> dict:
 
 def ptxas_rows(report: str, kernel: str = "scene_megakernel") -> dict:
     """Registers, spill bytes and stack frame of each instantiation of a
-    kernel from a ptxas report, keyed <STATS,NEE,PHYSICAL,COUNT>."""
+    kernel from a ptxas report, keyed <STATS,NEE,PHYSICAL,COUNT> and, for a
+    kernel with a fifth parameter (the scene kernel's geometry policy), that
+    parameter after a slash."""
     import re
 
     rows, cur = {}, None
     for line in report.splitlines():
-        m = re.search(rf"Compiling entry function '_Z{len(kernel)}{kernel}ILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+        m = re.search(rf"Compiling entry function '_Z{len(kernel)}{kernel}ILb(\d)ELb(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?",
+                      line)
         if m:
-            cur = "<" + ",".join(m.groups()) + ">"
+            cur = "<" + ",".join(m.groups()[:4]) + ">" + (f"/{m[5]}" if m[5] is not None else "")
             rows[cur] = {}
             continue
         if cur is None:
@@ -1445,73 +1366,99 @@ def ptxas_rows(report: str, kernel: str = "scene_megakernel") -> dict:
     return rows
 
 
-def scan_setup(dev, shape: dict) -> dict:
-    """The scene, camera, intersector and lights of a scan row, and its
-    launch arguments."""
-    sd = genscene.sphere_field(16384, seed=0) if shape["name"] == "field16384" else stock(shape["name"])
-    sc, cam, isect, lights, w, h = scene_setup(dev, sd, "scan", shape.get("nee", False))
+def arm_setup(dev, shape: dict) -> dict:
+    """The scene, camera, intersector and lights of a row of the arm, and
+    its launch arguments."""
+    sd = stock("demo5planes") if shape["name"] == "demo5planes" else scene_by_name(shape["name"])
+    sc, cam, isect, lights, w, h = scene_setup(dev, sd, "sweep", shape.get("nee", False))
     return dict(sc=sc, cam=cam, isect=isect, lights=lights, w=w, h=h, row0=shape["row0"], n_rows=shape["n_rows"],
-                n_samples=shape["n_samples"], root=shape["root"], stats=shape.get("stats", False))
+                n_samples=shape["n_samples"], root=shape["root"], stats=shape.get("stats", False),
+                physical=shape.get("physical", False))
 
 
 def raw_scene(lib, st: dict, counts=None, **skips) -> torch.Tensor:
     """One launch of a scene kernel library as render_block_scene makes it
-    (seed 0, depth 5), not counted in the wrapper's launches."""
+    (seed 0, depth 5, the launch plan's split), not counted in the wrapper's
+    launches."""
+    sc = st["sc"]
     n_pix = st["n_rows"] * st["w"]
     stats = st["stats"] and counts is None
-    out = torch.empty((4 if stats else 3, n_pix), dtype=torch.float32, device=st["sc"].device)
-    packed = pack_scene(st["sc"], st["cam"], spheres=False, planes=st["sc"].num_planes <= sweep_kernel.MAX_PLANES)
-    geom, keep = scene_kernel.pack_geom(st["sc"], st["isect"], st["lights"], st["sc"].device, **skips)
-    plan = sweep_kernel.plan_launch(lib.flux_scene_blocks_per_sm, st["sc"].device, n_pix, st["n_samples"], stats,
-                                    st["lights"] is not None, False, counts is not None, 5)
+    nee = st["lights"] is not None
+    out = torch.empty((4 if stats else 3, n_pix), dtype=torch.float32, device=sc.device)
+    packed = pack_scene(sc, st["cam"], spheres=st["isect"].mode != "scan",
+                        planes=sc.num_planes <= sweep_kernel.MAX_PLANES)
+    geom, keep = scene_kernel.pack_geom(sc, st["isect"], st["lights"], sc.device, **skips)
+    split = sweep_kernel.launch_plan(n_pix, st["n_samples"]).split
     err = lib.flux_scene_render(
         out.data_ptr(), None if counts is None else counts.data_ptr(), ctypes.byref(packed), ctypes.byref(geom),
-        int(stats), int(st["lights"] is not None), 0, n_pix, st["w"], st["h"], st["row0"], 1, 0, st["n_samples"],
-        1 << 32, 0, st["root"], 5, plan.split, torch.cuda.current_stream().cuda_stream)
+        int(stats), int(nee), int(st["physical"]), n_pix, st["w"], st["h"], st["row0"], 1, 0, st["n_samples"],
+        1 << 32, 0, st["root"], 5, split, torch.cuda.current_stream().cuda_stream)
     check(err == 0, f"raw scene launch failed: CUDA error {err}")
     del keep
     return out
 
 
-def scan_counts(lib, st: dict) -> dict:
-    """A variant's counting launch on a scan row: per nearest fold and per
-    shadow fold the sphere blocks (32 spheres) and tree leaves (the
-    variant's leaf) a perfect skip needs, the walk's units entered (leaves,
-    or blocks in table order), the spheres tested and the box tests; and
-    the clock64 cycles of the sphere walks (box tests and folds) against the
-    bounce's phases that hold them, the counting launch's own passes for the
-    needed counters taken out."""
-    counts = torch.zeros((scene_kernel.N_COUNTS, st["n_rows"] * st["w"]), dtype=torch.int32, device=st["sc"].device)
+def arm_counts(lib, st: dict) -> dict:
+    """A build's counting launch on a row of the arm: the clock64 split of a
+    bounce (cycles per bounce of each phase and their shares; cycles are one
+    thread's, in a launch that spills, so shares count and cycles do not),
+    the shadow folds per bounce and per light sample, the share of light
+    samples whose shadow ray came through, and the triangle slots tested
+    per nearest and per shadow fold. With the triangle skip off a nearest
+    fold enters every block, so the blocks the shadow folds entered are the
+    rest of the count (a shadow fold stops at its first occluder, inside a
+    block: its slots are an upper bound)."""
+    n_pix = st["n_rows"] * st["w"]
+    counts = torch.zeros((scene_kernel.N_COUNTS, n_pix), dtype=torch.int32, device=st["sc"].device)
     raw_scene(lib, st, counts=counts)
     torch.cuda.synchronize()
     c = dict(zip(scene_kernel.COUNT_NAMES, ((counts.to(torch.int64) & 0xFFFFFFFF).sum(dim=1)).tolist()))
     c["clk_nearest"] -= c["clk_needed_walk"]
     c["clk_shadow"] -= c["clk_shadow_needed_walk"]
-    res = {"leaf": lib.flux_scene_scan_leaf(), "nearest_folds": c["bounces"], "shadow_folds": c["shadow_folds"]}
-    for fold, pre, n in (("nearest", "", c["bounces"]), ("shadow", "shadow_", c["shadow_folds"])):
-        n = max(n, 1)
-        res[fold] = {
-            "blocks_needed": c[f"{pre}sphere_blocks_needed"] / n, "leaves_needed": c[f"{pre}sphere_leaves_needed"] / n,
-            "units_entered": c[f"{pre}sphere_blocks_entered"] / n, "sphere_tests": c[f"{pre}sphere_tests"] / n,
-            "box_tests": c[f"{pre}sphere_box_tests"] / n, "cycles": c[f"clk_{fold}"] / n,
-            "box_cycles": c[f"clk_{pre}sphere_boxes"] / n, "fold_cycles": c[f"clk_{pre}sphere_folds"] / n,
-        }
+    nb = st["isect"].tri_layout.n_blocks
+    check(not scene_kernel.tri_skip_engaged(nb), "the arm's rows fold the whole triangle table")
+    bounces, samples, folds = max(c["bounces"], 1), max(c["light_samples"], 1), c["shadow_folds"]
+    shadow_blocks = c["tri_blocks_entered"] - nb * c["bounces"]
     phases = ("clk_nearest", "clk_light", "clk_shadow", "clk_scatter", "clk_mis")
     total = max(sum(c[k] for k in phases), 1)
-    res["bounce_cycles_share"] = {k: c[k] / total for k in phases}
-    return res
+    return {
+        "bounces": c["bounces"], "light_samples": c["light_samples"], "shadow_folds": folds,
+        "shadow_rays_through": c["shadow_rays"],
+        "shadow_folds_per_bounce": folds / bounces, "shadow_folds_per_light_sample": folds / samples,
+        "through_per_light_sample": c["shadow_rays"] / samples,
+        "through_per_shadow_fold": c["shadow_rays"] / folds if folds else None,
+        "tri_slots_per_nearest_fold": scene_kernel.TRI_SCAN_BLOCK * nb,
+        "tri_slots_per_shadow_fold": scene_kernel.TRI_SCAN_BLOCK * shadow_blocks / folds if folds else None,
+        "tri_blocks_needed_per_bounce": c["tri_blocks_needed"] / bounces,
+        "bounce_cycles_share": {k: c[k] / total for k in phases},
+        "cycles_per_bounce": {k: c[k] / bounces for k in phases},
+        "path_counts": {k: c[k] for k in PATH_COUNTS},
+        "bound_counts": {k: c[k] for k in BOUND_COUNTS},
+    }
 
 
-def scan_counting(dev, built: dict) -> dict:
-    """Phase 15's counting part: each variant's counters on each scan row,
-    and each build's registers and spills."""
+# Counters of the paths themselves: every build of the arm must count the
+# same; and the triangle counters the bound charges, which every build of
+# these sources must count alike.
+PATH_COUNTS = ("bounces", "light_samples", "shadow_rays", "reverse_densities", "glossy_lobes")
+BOUND_COUNTS = ("tri_blocks_needed", "shadow_tri_blocks_needed", "tris_needed", "shadow_tris_needed")
+
+
+def arm_counting(dev, built: dict) -> dict:
+    """Phase 15's counting part: each build's counters on each row of the
+    arm, and each build's registers and spills; the path counters of every
+    build equal."""
     res = {"ptxas": {n: ptxas_rows(r) for n, (_, r) in built.items()}}
-    for row, shape in SCAN_ROWS.items():
-        st = scan_setup(dev, shape)
-        res[row] = {n: scan_counts(lib, st) for n, (lib, _) in built.items()}
-        log(f"scan steps, counts ({row}, {shape['name']} band {shape['n_rows']}x800, {shape['n_samples']} spp):",
+    for row, shape in ARM_ROWS.items():
+        st = arm_setup(dev, shape)
+        res[row] = {n: arm_counts(lib, st) for n, (lib, _) in built.items()}
+        log(f"NEE arm, counts ({row}, demo5 band {shape['n_rows']}x512, {shape['n_samples']} spp):",
             json.dumps(res[row]))
-    log("scan steps (registers, spills, stack):", json.dumps(res["ptxas"]))
+        paths = {json.dumps(r["path_counts"]) for r in res[row].values()}
+        check(len(paths) == 1, f"{row}: the builds count different paths")
+        bound = {json.dumps(r["bound_counts"]) for n, r in res[row].items() if n != PARENT}
+        check(len(bound) == 1, f"{row}: the builds count different work for the bound")
+    log("NEE arm (registers, spills, stack):", json.dumps(res["ptxas"]))
     return res
 
 
@@ -1530,25 +1477,24 @@ def in_turns(fns: dict, rounds: int = 6) -> dict:
             "ms_quartile_spread": {n: float(np.subtract(*np.percentile(t, [75, 25]))) for n, t in times.items()}}
 
 
-def phase_scan_steps(dev, built: dict) -> dict:
-    """Phase 15: the scan's design, step by step, on its launches. The
-    counting part (scan_counting); then every variant, and the final build
-    with one level of boxes and with the skip off, timed in turns on each
-    row (6 rounds), with its sums bitwise against the final build's."""
-    res = scan_counting(dev, built)
-    for row, shape in SCAN_ROWS.items():
-        st = scan_setup(dev, shape)
+def phase_arm_steps(dev, built: dict) -> dict:
+    """Phase 15: the NEE arm's design, step by step, on its launches. The
+    counting part (arm_counting); then every build, and the final build
+    with the triangle skip forced on (the shadow ray folded where it is
+    drawn, in the general instantiations), timed in turns on each row (6
+    rounds), with its sums bitwise against the final build's."""
+    res = arm_counting(dev, built)
+    for row, shape in {**ARM_ROWS, **ARM_TIMED_ROWS}.items():
+        st = arm_setup(dev, shape)
         final = built[FINAL][0]
         fns = {n: (lambda lib=lib: raw_scene(lib, st)) for n, (lib, _) in built.items()}
-        fns["final, one level of boxes"] = lambda: raw_scene(final, st, two_level=False)
-        if shape["name"] != "field16384":  # about 100 ms a launch there: timed once in phase 12
-            fns["final, skip off"] = lambda: raw_scene(final, st, scan_skip=False)
+        fns["final, triangle skip on"] = lambda: raw_scene(final, st, tri_skip=True)
         ref = fns[FINAL]()
         torch.cuda.synchronize()
         r = in_turns(fns)
         r["bits_equal_final"] = {n: bits_equal(fn(), ref) for n, fn in fns.items()}
-        res[row].update(times=r)
-        log(f"scan steps, times ({row}):", json.dumps(r))
+        res.setdefault(row, {}).update(times=r)
+        log(f"NEE arm, times ({row}):", json.dumps(r))
         check(all(r["bits_equal_final"].values()), f"{row}: a design step changes the result")
     return res
 
@@ -1570,7 +1516,7 @@ def load_parent(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["flux_tpu_torch_parent"] = mod
     spec.loader.exec_module(mod)
-    for sub in ("ops.build", "render", "scene", "genscene", "meshgen"):
+    for sub in ("ops.build", "ops.scene_kernel", "render", "scene", "genscene", "meshgen"):
         importlib.import_module(f"flux_tpu_torch_parent.{sub}")
     return mod
 
@@ -1595,7 +1541,7 @@ def parent_rows(dev, parent) -> dict:
     rows = [("sweep", dict(name="demo2", row0=300, n_rows=50, n_samples=16384, root=128))]
     rows += [(cfg, shape) for cfg, _, shape in MEASURE]
     rows += [(cfg, {"name": name, **shape}) for cfg, _, name, shape in SCENE_MEASURE]
-    rows += [("scan, sphere_field(16384)", SCAN_ROWS["sphere_field(16384) scan"])]
+    rows += [("scan, sphere_field(16384)", dict(name="field16384", row0=300, n_rows=50, n_samples=16, root=4))]
     res = {}
     for cfg, shape in rows:
         pkgs = {"parent": parent, "new": flux_tpu_torch}
@@ -1663,12 +1609,12 @@ def main(argv=None) -> int:
                                                                list(parent.ops.build.LIBRARIES))
         variants = start_variant_builds()
         build.build_many(list(build.LIBRARIES))
-        built_variants = finish_variant_builds(variants)
         if parent_built is not None:
             parent_built.result()
             for name, info in parent.ops.build.BUILD_LOG.items():
                 log(f"build: the parent's {name} in {info['seconds']:.1f} s:",
                     json.dumps(ptxas_rows(info["ptxas"], name)))
+        built_variants = finish_variant_builds(variants, parent)
     log(f"build: {len(build.LIBRARIES)} libraries in {time.perf_counter() - t0:.1f} s of wall time")
     for name in build.LIBRARIES:
         info = build.BUILD_LOG[name]
@@ -1719,14 +1665,15 @@ def main(argv=None) -> int:
             m = measure_scene_launch(dev, scene_by_name(scene_name), cfg, **shape)
             entry = kernel_entry(f"scene_megakernel[{cfg}]", replaces, scene_paths["launches"][cfg], m,
                                  source="flux_tpu_torch/csrc/scene_megakernel.cu")
-            entry.update(plain_shape=m["plain_shape"], timed_options_ms=m["timed_options_ms"])
+            entry.update(plain_shape=m["plain_shape"], timed_options_ms=m["timed_options_ms"],
+                         bound_ms_separate_folds=m["bound_ms_separate_folds"])
             if cfg == "scan":
                 entry["sphere_field_16384_band"] = big
             kernels.append(entry)
     with phase_timer("14 design checks"):
         phase_design(dev)
-    with phase_timer("15 the scan, step by step"):
-        phase_scan_steps(dev, built_variants)
+    with phase_timer("15 the NEE arm, step by step"):
+        phase_arm_steps(dev, built_variants)
     if parent is not None:
         with phase_timer("16 against the parent's build"):
             parent_rows(dev, parent)

@@ -8,7 +8,8 @@
 //                        (K1-K4; at most 64 spheres, no triangles);
 //   scene_megakernel.cu  Morton-sorted block tables in device memory with an
 //                        AABB skip (K5 scan, K6 triangle fold, K7 triangle
-//                        lights; no cap on the tables' size).
+//                        lights; no cap on the tables' size; the policies
+//                        are in scene_geom.cuh).
 //
 // A geometry policy G has
 //   typename G::Lights            the light set's accessors (below);
@@ -462,14 +463,38 @@ __device__ __forceinline__ bool sweep_occluded(V3 o, V3 d, float a, float inv_a,
   return false;
 }
 
-// Both at once, for a shadow ray carried to the next bounce: the nearest hit
-// of (o, d) as sweep_nearest gives it, and in *occ whether the shadow ray
-// (o, ds) meets a shape other than `exclude` at T_MIN < t < t_max, as
-// sweep_occluded gives it for origin `prev`. Both rays start at o on `prev`,
-// so each shape's constants are read once and its origin terms (o - c and
-// c of a sphere, the numerator of a plane) computed once. Without `shadow`
-// the nearest sweep alone and *occ false; once the shadow ray is stopped it
-// is tested no further.
+// The spheres of the __constant__ scene record for two rays from one point,
+// for a shadow ray carried to the next bounce: the nearest hit of (o, d) as
+// sweep_spheres_nearest gives it, and in *occ whether the shadow ray (o, ds)
+// meets a sphere other than `exclude` at T_MIN < t < t_max, as
+// sweep_spheres_occluded gives it for origin `prev`. Both rays start at o on
+// `prev`, so each sphere's constants are read once and its origin terms
+// (o - c and c) computed once. Without `shadow` the nearest sweep alone;
+// once the shadow ray is stopped it is tested no further. Updates (bt, bi)
+// and *occ.
+__device__ __forceinline__ void sweep_spheres_nearest_shadow(V3 o, V3 d, float a, float inv_a, int prev, V3 ds,
+                                                             float as, float inv_as, float t_max, int exclude,
+                                                             bool shadow, float* bt, int* bi, bool* occ) {
+  const int ns = c_scene.n_spheres;
+  for (int i = 0; i < ns; ++i) {
+    const SphereOrigin so =
+        sphere_origin(o, c_scene.sph[i][0], c_scene.sph[i][1], c_scene.sph[i][2], c_scene.sph[i][3], prev == i);
+    float t;
+    if (sphere_root(so, d, a, inv_a, &t) && t < *bt) {
+      *bt = t;
+      *bi = i;
+    }
+    if (shadow && !*occ && i != exclude) {
+      float ts;
+      if (sphere_root(so, ds, as, inv_as, &ts) && ts < t_max) *occ = true;
+    }
+  }
+}
+
+// Both at once over the whole __constant__ scene: the nearest hit of (o, d)
+// as sweep_nearest gives it, and in *occ whether the shadow ray (o, ds) is
+// occluded, as sweep_occluded gives it for origin `prev`; a plane's
+// numerator, too, is computed once for both rays.
 __device__ __forceinline__ void sweep_nearest_shadow(V3 o, V3 d, float a, float inv_a, int prev, V3 ds,
                                                      float as, float inv_as, float t_max, int exclude,
                                                      bool shadow, float* best_t, int* best, bool* occ) {
@@ -477,19 +502,7 @@ __device__ __forceinline__ void sweep_nearest_shadow(V3 o, V3 d, float a, float 
   float bt = __int_as_float(0x7f800000);  // +inf
   int bi = 0;
   bool oc = false;
-  for (int i = 0; i < ns; ++i) {
-    const SphereOrigin so =
-        sphere_origin(o, c_scene.sph[i][0], c_scene.sph[i][1], c_scene.sph[i][2], c_scene.sph[i][3], prev == i);
-    float t;
-    if (sphere_root(so, d, a, inv_a, &t) && t < bt) {
-      bt = t;
-      bi = i;
-    }
-    if (shadow && !oc && i != exclude) {
-      float ts;
-      if (sphere_root(so, ds, as, inv_as, &ts) && ts < t_max) oc = true;
-    }
-  }
+  sweep_spheres_nearest_shadow(o, d, a, inv_a, prev, ds, as, inv_as, t_max, exclude, shadow, &bt, &bi, &oc);
   for (int j = 0; j < c_scene.n_planes; ++j) {
     const float num = plane_num(o, j);
     const float t = num / plane_den(d, j);
@@ -507,10 +520,50 @@ __device__ __forceinline__ void sweep_nearest_shadow(V3 o, V3 d, float a, float 
   *occ = oc;
 }
 
-// Möller–Trumbore (intersect.triangle_t). No epsilon guard on the
-// determinant: a degenerate one makes inv huge or ±inf and every acceptance
-// fails arithmetically; a NaN v0 (padding) fails every comparison. Writes t;
-// returns whether the triangle is hit at t > T_MIN.
+// Möller–Trumbore (intersect.triangle_t), in two parts as the sphere test
+// is: what depends on the ray's origin alone (s = o - v0, q = s × e1 and the
+// numerator e2·q of t), which two rays from one point share, and the rest
+// along a direction. No epsilon guard on the determinant: a degenerate one
+// makes inv huge or ±inf and every acceptance fails arithmetically; a NaN
+// v0 (padding) fails every comparison. (A zero or NaN determinant takes the
+// correctly rounded division's slow path.)
+struct TriOrigin {
+  float sx, sy, sz;  // o - v0
+  float qx, qy, qz;  // s × e1
+  float t_num;  // e2 · q
+};
+
+__device__ __forceinline__ TriOrigin triangle_origin(V3 o, V3 v0, V3 e1, V3 e2) {
+  TriOrigin s;
+  s.sx = o.x - v0.x;
+  s.sy = o.y - v0.y;
+  s.sz = o.z - v0.z;
+  s.qx = s.sy * e1.z - s.sz * e1.y;
+  s.qy = s.sz * e1.x - s.sx * e1.z;
+  s.qz = s.sx * e1.y - s.sy * e1.x;
+  s.t_num = e2.x * s.qx + e2.y * s.qy + e2.z * s.qz;
+  return s;
+}
+
+// Writes t; returns whether the triangle is hit along d at t > T_MIN.
+__device__ __forceinline__ bool triangle_root(const TriOrigin& s, V3 d, V3 e1, V3 e2, float* t_out) {
+  const float px = d.y * e2.z - d.z * e2.y;
+  const float py = d.z * e2.x - d.x * e2.z;
+  const float pz = d.x * e2.y - d.y * e2.x;
+  const float det = e1.x * px + e1.y * py + e1.z * pz;
+  const float inv = 1.0f / det;
+  const float u = (s.sx * px + s.sy * py + s.sz * pz) * inv;
+  const float v = (d.x * s.qx + d.y * s.qy + d.z * s.qz) * inv;
+  const float t = s.t_num * inv;
+  *t_out = t;
+  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > T_MIN;
+}
+
+// Both parts in one, for a single ray: the same operations on the same
+// values, written out in one piece for the separate folds (written as
+// triangle_root(triangle_origin(...)) they left the scan's instantiations,
+// which compile these folds too, another register allocation and 1.5-2.2%
+// slower on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 __device__ __forceinline__ bool triangle_t(V3 o, V3 d, V3 v0, V3 e1, V3 e2, float* t_out) {
   const float px = d.y * e2.z - d.z * e2.y;
   const float py = d.z * e2.x - d.x * e2.z;

@@ -47,7 +47,13 @@
 // the spheres tested, for nearest and for shadow folds. Then clock64 cycles
 // inside a bounce's CLK_NEAREST and CLK_SHADOW: sphere box tests and sphere
 // folds of nearest and of shadow walks, and the counting launch's own passes
-// over the boxes for the *_NEEDED counters (nearest, shadow).
+// over the boxes for the *_NEEDED counters (nearest, shadow). Then, for the
+// operation bound: the triangle blocks needed by shadow rays (part of
+// CNT_TRI_NEEDED), the triangles those blocks hold without their padding
+// (all rays; shadow rays), and the shadow folds a sphere of the scan stopped.
+// A triangle block is needed by a nearest fold if the ray enters its box at
+// or before the final hit, by a shadow ray that came through if it enters it
+// before t_max; a shadow ray a triangle stopped needs that one triangle.
 #define CNT_SPH_NEEDED (FLUX_N_COUNTS + 0)
 #define CNT_SPH_ENTERED (FLUX_N_COUNTS + 1)
 #define CNT_SPH_TESTS (FLUX_N_COUNTS + 2)
@@ -66,7 +72,11 @@
 #define CLK_SH_SPH_BOX (FLUX_N_COUNTS + 16)  // + 1: its folds
 #define CLK_NEEDED (FLUX_N_COUNTS + 18)  // inside CLK_NEAREST
 #define CLK_SH_NEEDED (FLUX_N_COUNTS + 19)  // inside CLK_SHADOW
-#define FLUX_SCENE_N_COUNTS (FLUX_N_COUNTS + 20)
+#define CNT_SH_TRI_NEEDED (FLUX_N_COUNTS + 20)
+#define CNT_TRIS_NEEDED (FLUX_N_COUNTS + 21)
+#define CNT_SH_TRIS_NEEDED (FLUX_N_COUNTS + 22)
+#define CNT_SH_SPH_STOPS (FLUX_N_COUNTS + 23)
+#define FLUX_SCENE_N_COUNTS (FLUX_N_COUNTS + 24)
 #define NO_LAPS (-1)
 
 // What the slab test must allow for, so that a skipped block never holds a

@@ -72,7 +72,7 @@ def _nvcc() -> str:
 # from, which the cache key covers beside the source itself.
 LIBRARIES = {
     "sweep_megakernel": ("flux_trace.cuh",),
-    "scene_megakernel": ("flux_trace.cuh", "scan_walk.cuh"),
+    "scene_megakernel": ("flux_trace.cuh", "scan_walk.cuh", "scene_geom.cuh"),
 }
 
 

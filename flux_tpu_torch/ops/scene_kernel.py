@@ -16,8 +16,13 @@ blocks with the AABB skip), K6 (the triangle fold) and K7 (triangle lights
 in NEE), each with the stats channel, NEE and physical transport as the
 sweep megakernel has them. Sweep or scan, triangles, triangle lights and the
 skips are run-time choices of one launch; the template instantiations are
-``<STATS, NEE, PHYSICAL>`` only. The source's header says what bounds it on
-the H100 and how its design meets that.
+``<STATS, NEE, PHYSICAL>`` and the geometry policy, which the library picks
+per launch from the packed :class:`FluxGeom`: in sweep mode, where no shadow
+ray would walk the triangle skip and the triangle table fits the kernel's
+shared-memory stage, a policy without the scan's walk that folds a light
+sample's shadow ray beside the next bounce's ray. The
+source's header says what bounds it on the H100 and how its design meets
+that.
 
 What this module does on the host, once per layout and light set: it packs
 the :class:`ScanLayout` (with the binary tree of boxes over runs of
@@ -76,7 +81,11 @@ SCAN_LEAF = 16  # spheres under one leaf of the sphere tree (FLUX_SCAN_LEAF)
 # folds, sphere blocks of shadow folds, the tree leaves needed and the
 # spheres tested (nearest, shadow); and the cycles of sphere box tests and
 # folds inside clk_nearest and clk_shadow, and of the counting launch's own
-# passes for the *_needed counters (inside clk_nearest, clk_shadow).
+# passes for the *_needed counters (inside clk_nearest, clk_shadow); then the
+# triangle blocks needed by shadow rays (part of tri_blocks_needed), the
+# triangles those blocks hold without their padding (all rays, shadow rays;
+# one for a shadow ray a triangle stopped) and the shadow folds a sphere of
+# the scan stopped.
 COUNT_NAMES = TRACER_COUNT_NAMES + (
     "sphere_blocks_needed", "sphere_blocks_entered", "sphere_box_tests",
     "tri_blocks_needed", "tri_blocks_entered", "tri_box_tests", "shadow_folds",
@@ -84,6 +93,7 @@ COUNT_NAMES = TRACER_COUNT_NAMES + (
     "sphere_leaves_needed", "shadow_sphere_leaves_needed", "sphere_tests", "shadow_sphere_tests",
     "clk_sphere_boxes", "clk_sphere_folds", "clk_shadow_sphere_boxes", "clk_shadow_sphere_folds",
     "clk_needed_walk", "clk_shadow_needed_walk",
+    "shadow_tri_blocks_needed", "tris_needed", "shadow_tris_needed", "shadow_sphere_stops",
 )
 N_COUNTS = len(COUNT_NAMES)
 # The triangle skip is engaged from this many triangle blocks on; below it
@@ -344,9 +354,10 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+def declare(lib: ctypes.CDLL, n_counts: int = N_COUNTS) -> ctypes.CDLL:
     """Declares the C signatures of a loaded scene kernel library and checks
-    that its FluxScene, FluxGeom and counters match this module's."""
+    that its FluxScene and FluxGeom match this module's, and that it has
+    ``n_counts`` counters (the first of ``COUNT_NAMES``)."""
     for fn in ("flux_scene_scene_bytes", "flux_scene_geom_bytes"):
         getattr(lib, fn).restype = ctypes.c_size_t
         getattr(lib, fn).argtypes = []
@@ -354,7 +365,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = []
     lib.flux_scene_blocks_per_sm.restype = ctypes.c_int
-    lib.flux_scene_blocks_per_sm.argtypes = [ctypes.c_int] * 6
+    lib.flux_scene_blocks_per_sm.argtypes = [ctypes.POINTER(FluxGeom)] + [ctypes.c_int] * 6
     lib.flux_scene_error_string.restype = ctypes.c_char_p
     lib.flux_scene_error_string.argtypes = [ctypes.c_int]
     lib.flux_scene_render.restype = ctypes.c_int
@@ -385,7 +396,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     if (
         lib.flux_scene_scene_bytes() != ctypes.sizeof(FluxScene)
         or lib.flux_scene_geom_bytes() != ctypes.sizeof(FluxGeom)
-        or lib.flux_scene_n_counts() != N_COUNTS
+        or lib.flux_scene_n_counts() != n_counts
         or lib.flux_scene_block_sizes() != SCAN_BLOCK * 10000 + TRI_SCAN_BLOCK * 100 + SUPER
     ):
         raise RuntimeError("FluxScene/FluxGeom layout differs between Python and CUDA")
@@ -532,8 +543,8 @@ def render_block_scene(
     packed = pack_scene(scene, cam, spheres=not scan, planes=scene.num_planes <= MAX_PLANES)
     geom, keep = pack_geom(scene, isect, lights, dev, **skips)
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
-    plan = plan_launch(lib.flux_scene_blocks_per_sm, dev, n_pix, n_samples, with_stats, lights is not None,
-                       physical, work_counts is not None, max_depth)
+    plan = plan_launch(functools.partial(lib.flux_scene_blocks_per_sm, ctypes.byref(geom)), dev, n_pix, n_samples,
+                       with_stats, lights is not None, physical, work_counts is not None, max_depth)
     with torch.cuda.device(dev):
         err = lib.flux_scene_render(
             out.data_ptr(), counts_ptr, ctypes.byref(packed), ctypes.byref(geom), int(with_stats),
@@ -566,6 +577,11 @@ render_block_scene.last_plan = None
 # compares, selects, min and max are not counted).
 _OPS_PER_TRIANGLE_TEST = 46  # two cross products, the determinant, 1/det, s, u, v, t, u + v
 _OPS_PER_BOX_TEST = 12  # six slab values (a subtract and a multiply each); the ten min/max not counted
+# Of these, what depends on the ray's origin alone (a triangle's s = o - v0,
+# q = s × e1 and e2·q; a box's six lo - o, hi - o): a shadow ray shares it
+# with the next bounce's ray, which leaves the same point.
+_OPS_PER_TRIANGLE_ORIGIN = 17
+_OPS_PER_BOX_ORIGIN = 6
 _OPS_PER_RAY_INVERSE = 3  # 1/d per nearest or shadow fold
 # The triangle light sample: the barycentric fold and point (14), the
 # direction and its length (13), cos θ_l (5), the weight (9) and the density
@@ -576,45 +592,69 @@ _OPS_PER_TRI_REVERSE_DENSITY = 9  # cos θ_l, pick·t², A·cosθ_l, the quotien
 
 def flops_lower_bound(scene: SceneTensors, isect: Intersector, n_samples: int, counts: dict, *,
                       with_stats: bool = False, physical: bool = False,
-                      tri_light_fraction: float = 0.0, by_blocks: bool = False) -> int:
+                      tri_light_fraction: float = 0.0, by_blocks: bool = False,
+                      separate_folds: bool = False) -> int:
     """A lower bound on the kernel's float32 operations for a launch that
     traced ``n_samples`` samples, from its work counters summed over the
     band (``counts`` by ``COUNT_NAMES``).
 
     Everything but the geometry is charged as the sweep megakernel's bound
     charges it. The geometry is charged what a perfect skip over the
-    table's finest boxes would still do: every sphere of each leaf of the
-    sphere tree (``SCAN_LEAF`` spheres; with ``by_blocks``, of each block of
-    32, the rule before the tree) and every triangle of each triangle block
-    whose box a ray enters at or before its final hit, and one box test for
-    each; in sweep mode every sphere for every bounce.
+    table's finest boxes would still do: one box test for each leaf of the
+    sphere tree (``SCAN_LEAF`` spheres; with ``by_blocks``, each block of
+    32, the rule before the tree) and each triangle block whose box a ray
+    enters at or before its final hit (a shadow ray that came through:
+    before its far end), and a test of every sphere of the leaf and every
+    triangle of the block, padding left out; one box and one shape test for
+    a shadow ray the scan's spheres or a triangle stopped; in sweep mode
+    every sphere for every bounce. A shadow ray leaves the point the next
+    bounce's ray leaves, so it is charged only the part of each test that
+    depends on its direction (``_OPS_PER_*_ORIGIN`` less), as the sweep
+    megakernel's bound charges it; ``separate_folds`` charges it every test
+    in full and every block with 16 triangles, the rule before the shadow
+    ray was folded beside the next bounce's ray, for comparison.
     ``tri_light_fraction`` is the share of the light set's pick probability
     that lies on triangle lights: those samples are charged the cheaper
     triangle sample."""
     from . import sweep_kernel as sk
 
     unit, size = ("blocks", SCAN_BLOCK) if by_blocks else ("leaves", SCAN_LEAF)
-
+    c = counts
     base = sk.flops_lower_bound(
-        scene, n_samples, counts["bounces"], with_stats=with_stats, physical=physical,
-        light_samples=0, shadow_rays=0, reverse_densities=0, glossy_lobes=counts["glossy_lobes"],
+        scene, n_samples, c["bounces"], with_stats=with_stats, physical=physical,
+        light_samples=0, shadow_rays=0, reverse_densities=0, glossy_lobes=c["glossy_lobes"],
     )
-    if isect.mode == "scan":  # the spheres are charged by blocks below, not per bounce
-        base -= counts["bounces"] * scene.num_spheres * sk._OPS_PER_SPHERE_TEST
+    if isect.mode == "scan":  # the spheres are charged by leaves below, not per bounce
+        base -= c["bounces"] * scene.num_spheres * sk._OPS_PER_SPHERE_TEST
+    shared = 0 if separate_folds else 1
+    sphere_sh = sk._OPS_PER_SPHERE_TEST - shared * sk._OPS_PER_SPHERE_ORIGIN
+    plane_sh = sk._OPS_PER_PLANE_TEST - shared * sk._OPS_PER_PLANE_ORIGIN
+    tri_sh = _OPS_PER_TRIANGLE_TEST - shared * _OPS_PER_TRIANGLE_ORIGIN
+    box_sh = _OPS_PER_BOX_TEST - shared * _OPS_PER_BOX_ORIGIN
     cone = sk._OPS_PER_LIGHT_SAMPLE
     tri_sample = cone - 123 + _OPS_PER_TRI_LIGHT_SAMPLE
     f = tri_light_fraction
     contrib = sk._OPS_PER_SHADOW_CONTRIB + (sk._OPS_PER_SHADOW_CONTRIB_MIS if physical else 0)
-    shadow_planes = max(scene.num_planes - 1, 0) * sk._OPS_PER_PLANE_TEST
-    shadow_spheres = max(scene.num_spheres - 1, 0) * sk._OPS_PER_SPHERE_TEST if isect.mode == "sweep" else 0
+    shadow_planes = max(scene.num_planes - 1, 0) * plane_sh
+    shadow_spheres = max(scene.num_spheres - 1, 0) * sphere_sh if isect.mode == "sweep" else 0
+    leaves = c[f"sphere_{unit}_needed"] * (size * sk._OPS_PER_SPHERE_TEST + _OPS_PER_BOX_TEST)
+    if separate_folds:
+        leaves += c[f"shadow_sphere_{unit}_needed"] * (size * sk._OPS_PER_SPHERE_TEST + _OPS_PER_BOX_TEST)
+        tris = c["tri_blocks_needed"] * (TRI_SCAN_BLOCK * _OPS_PER_TRIANGLE_TEST + _OPS_PER_BOX_TEST)
+    else:
+        stops = c["shadow_sphere_stops"]
+        leaves += ((c[f"shadow_sphere_{unit}_needed"] - stops) * (size * sphere_sh + box_sh)
+                   + stops * (sphere_sh + box_sh))
+        sh_blocks, sh_tris = c["shadow_tri_blocks_needed"], c["shadow_tris_needed"]
+        tris = ((c["tri_blocks_needed"] - sh_blocks) * _OPS_PER_BOX_TEST + sh_blocks * box_sh
+                + (c["tris_needed"] - sh_tris) * _OPS_PER_TRIANGLE_TEST + sh_tris * tri_sh)
     return int(
         base
-        + counts["light_samples"] * ((1.0 - f) * cone + f * tri_sample)
-        + counts["shadow_rays"] * (contrib + shadow_planes + shadow_spheres)
-        + counts["reverse_densities"] * ((1.0 - f) * sk._OPS_PER_REVERSE_DENSITY + f * _OPS_PER_TRI_REVERSE_DENSITY)
-        + (counts[f"sphere_{unit}_needed"] + counts[f"shadow_sphere_{unit}_needed"])
-        * (size * sk._OPS_PER_SPHERE_TEST + _OPS_PER_BOX_TEST)
-        + counts["tri_blocks_needed"] * (TRI_SCAN_BLOCK * _OPS_PER_TRIANGLE_TEST + _OPS_PER_BOX_TEST)
-        + (counts["bounces"] + counts["shadow_folds"]) * _OPS_PER_RAY_INVERSE
+        + c["light_samples"] * ((1.0 - f) * cone + f * tri_sample)
+        + c["shadow_rays"] * (contrib + shadow_planes + shadow_spheres)
+        + c["reverse_densities"] * ((1.0 - f) * sk._OPS_PER_REVERSE_DENSITY + f * _OPS_PER_TRI_REVERSE_DENSITY)
+        + leaves
+        + tris
+        + (c["bounces"] + c["shadow_folds"]) * _OPS_PER_RAY_INVERSE
     )
 

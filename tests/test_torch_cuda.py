@@ -169,7 +169,11 @@ def test_kernel_matches_plain_edge_scenes(card, case):
 
 # (scene, accel, nee, physical, stats): the scene megakernel's
 # configurations on the stock scenes that reach them. spheres512 has 16
-# emissive spheres (the any-hit scan fold), demo5 a two-triangle light.
+# emissive spheres (the any-hit scan fold), demo5 a two-triangle light;
+# "demo5planes" is demo5 with a ring of 19 more planes (the plane table).
+# demo5's NEE rows in sweep mode carry the shadow ray to the next bounce
+# (the whole triangle table is folded); tri_skip=True folds it where it is
+# drawn, in the other instantiations, with the same bits.
 SCENE_CONFIGS = [
     ("spheres512", "scan", False, False, False),
     ("spheres512", "scan", True, False, True),
@@ -180,12 +184,21 @@ SCENE_CONFIGS = [
     ("demo5", "sweep", False, False, True),
     ("demo5", "sweep", True, False, False),
     ("demo5", "sweep", True, True, False),
+    ("demo5", "sweep", True, False, True),
+    ("demo5", "sweep", True, True, True),
     ("demo5", "scan", True, True, True),
+    ("demo5planes", "sweep", True, False, False),
+    ("demo5planes", "sweep", True, True, False),
+    ("demo5planes", "sweep", True, False, True),
+    ("demo5planes", "sweep", True, True, True),
 ]
 
 
 def _scene_setup(card, name, accel, nee):
-    sd = load_scene(os.path.join(SCENES, f"{name}.yml"))
+    if name == "demo5planes":
+        sd = plane_ring(load_scene(os.path.join(SCENES, "demo5.yml")), 19)
+    else:
+        sd = load_scene(os.path.join(SCENES, f"{name}.yml"))
     sc = compile_scene(sd, card)
     cam = camera_tensors(sd.camera_settings, sd.camera_data, sd.output_settings.pixel_size, card)
     isect = Intersector(
@@ -263,10 +276,39 @@ def test_scene_kernel_work_counts(card):
     assert c["sphere_blocks_needed"] > 0
     assert c["bounces"] >= 2 * w * 4 and c["shadow_folds"] > 0 and c["tri_blocks_entered"] == 0
     assert 0 < c["shadow_sphere_leaves_needed"] <= c["shadow_sphere_blocks_entered"] <= c["shadow_sphere_box_tests"]
+    assert 0 < c["shadow_sphere_stops"] <= min(c["shadow_sphere_leaves_needed"], c["shadow_folds"])
     render_block_scene(sc, cam, h // 2, 0, 5, work_counts=counts, scan_skip=False, **kw)
     c2 = dict(zip(scene_kernel.COUNT_NAMES, counts.to(torch.int64).sum(dim=1).tolist()))
     assert c2["bounces"] == c["bounces"] and c2["sphere_box_tests"] == 0
     assert c2["sphere_blocks_entered"] >= c2["bounces"] * isect.layout.n_blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physical", [False, True], ids=["K7", "K7+K4"])
+def test_scene_kernel_carried_shadow_counts(card, physical):
+    """The Cornell box's NEE arm: with the whole triangle table folded the
+    shadow ray has no fold of its own (it rides beside the next bounce's
+    ray, every triangle block entered once a bounce), with the triangle skip
+    forced on it has. (That the carried launch's path counters equal the
+    parent commit's whole-fold launch is held by chip_smoke.py phase 15.)"""
+    sc, cam, isect, lights, w, h = _scene_setup(card, "demo5", "sweep", True)
+    kw = dict(isect=isect, img_w=w, img_h=h, n_rows=2, n_samples=8, root=2, max_depth=5, lights=lights,
+              physical=physical)
+    got = {}
+    for skip in (False, True):
+        counts = torch.zeros((scene_kernel.N_COUNTS, 2 * w), dtype=torch.int32, device=card)
+        render_block_scene(sc, cam, h // 2, 0, 5, work_counts=counts, tri_skip=skip, **kw)
+        got[skip] = dict(zip(scene_kernel.COUNT_NAMES, counts.to(torch.int64).sum(dim=1).tolist()))
+    carried, folded = got[False], got[True]
+    assert carried["shadow_folds"] == 0 and folded["shadow_folds"] > 0
+    assert carried["tri_blocks_entered"] == carried["bounces"] * isect.tri_layout.n_blocks
+    assert 0 < carried["shadow_rays"] < carried["light_samples"] < carried["bounces"]
+    # What the operation bound charges: the shadow rays' part of the blocks
+    # and triangles needed, and no padding slot (36 triangles in 48 slots).
+    for c in (carried, folded):
+        assert 0 < c["shadow_tri_blocks_needed"] < c["tri_blocks_needed"]
+        assert 0 < c["shadow_tris_needed"] < c["tris_needed"] <= 36 * (c["bounces"] + c["light_samples"])
+        assert c["tris_needed"] < scene_kernel.TRI_SCAN_BLOCK * c["tri_blocks_needed"]
 
 
 def _scan_scene(card, name, nee):
