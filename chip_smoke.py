@@ -109,33 +109,41 @@ Phases, in order; any failure exits non-zero before the result line:
    on the K1 and K7 bands (the work counters live only in the former), K1
    on 42 rows and K7 on 48 rows beside their 50-row bands (the cost per
    row as the last wave empties), and the triangle skip on and off on
-   meshes of 2 to 80 triangle blocks and on the Cornell box, bitwise equal,
-   beside the rule ``scene_kernel.TRI_SKIP_ENGAGE``;
-15. the NEE arm of the scene kernel, step by step, on its launches (K7,
-   K7 + K4, K7 + K2 and K7 + K4 + K2 as phase 13 makes them; timed beside
-   them K6 on mesh1280 and K7 + K4 on demo5 with 19 more planes): the scene
-   source is built again with design steps undone or taken further by text
-   edits (in phase 2, beside the two libraries; a variant whose edit no
-   longer applies is left out, and said so): a, the NEE launches in sweep
-   mode on a policy of their own, apart from the scan's walk, with the
-   shadow ray folded where it is drawn; b, a with the shadow ray carried to
-   the next bounce and folded beside its ray; d, b with the triangle
-   table's padding slots passed over; e, d with the table staged in shared
-   memory (the sources as they are); with ``--parent``, the parent's build
-   beside them. The phase prints each
-   build's registers, spills and stack frame; from each build's counting
-   launch the clock64 split of a bounce (nearest, light, shadow, scatter,
-   MIS), shadow folds per bounce and per light sample, the share of light
-   samples that came through and the triangle slots tested per nearest and
-   per shadow fold (the path counters of every build must be equal, and
-   the bound's triangle counters of every build of these sources); then
-   every build, and the final build with the triangle skip forced on,
-   timed in turns with its bits against the final build's;
+   meshes of 2 to 1280 triangle blocks and on the Cornell box, bitwise equal,
+   beside the rule ``scene_kernel.TRI_SKIP_ENGAGE``, with the direction
+   lists' grid, entries and host seconds; on icosphere(5) (20,480
+   triangles, past the lists' budget) the lists built at each grid,
+   timed, beside the rule ``scene_kernel.BIN_TESTS``;
+15. the triangle fold, step by step, on its launches (K6, K6 + K4 and K6 +
+   K4 + K2 as phase 13 makes them, and K6 on icosphere(5)): the scene
+   source is built again with a design step undone by a text edit (in
+   phase 2, beside the two libraries; a variant whose edit no longer
+   applies is left out, and said so): a, the widened walk over the blocks'
+   boxes one by one with the list, without the tree; t, the widened walk
+   over the parent's two levels (groups of 8 blocks, then their blocks, in
+   table order) with the list; x and y, the tree without the list and
+   without the widening either (not exact: their bits are not held); b,
+   the tree (the sources as they are); with
+   ``--parent``, the parent's build, and the parent's build with its
+   triangle walk's cycles counted (in the sphere walk's clock counters,
+   unused on these launches). The phase prints each build's registers,
+   spills and stack frame; from each build's counting launch the triangle
+   blocks needed, entered and box-tested per fold, the share entered
+   beyond what a perfect skip needs, the list entries read and triangles
+   folded apart per fold, and the clock64 split of a bounce (spheres and
+   planes, triangle box tests, triangle folds, lists, scatter) (the path
+   counters of every build of these sources must be equal); then every
+   build, and the final build with the triangle skip off, timed in turns
+   with its bits against the final build's (equal for every build of these
+   sources; the parent's said);
 16. with ``--parent DIR`` (the root of another checkout, such as the parent
    commit's, unpacked by ``git archive``): that checkout's package, imported
    under another name and built in phase 2, and this one render every row
    of phases 6, 9 and 13 and phase 12's band through a Renderer each, in
-   turns (parent, new, new, parent), bitwise.
+   turns (parent, new, new, parent), bitwise; a row whose bits differ must
+   be one where the new launch equals the fold over every triangle block
+   (the skip off) of both packages: the parent's triangle skip was not
+   exact.
 
 Every phase prints its wall seconds. It ends with a ``{"kernels": [...]}``
 line (one entry per instantiation and configuration) and then the result
@@ -763,6 +771,8 @@ def entered_share(c: dict, isect) -> dict:
                        shadow_sphere_box_tests_per_fold=c["shadow_sphere_box_tests"] / sh)
     if isect.tri_layout is not None:
         nb = isect.tri_layout.n_blocks
+        out.update(tri_list_entries_per_fold=c["tri_candidates"] / folds,
+                   tris_folded_apart_per_fold=c["tri_exceptions"] / folds)
         out.update(tri_blocks=nb, tri_blocks_entered_per_fold=c["tri_blocks_entered"] / folds,
                    tri_share_entered=c["tri_blocks_entered"] / folds / nb,
                    tri_blocks_needed_per_fold=c["tri_blocks_needed"] / folds,
@@ -1170,8 +1180,11 @@ def phase_design(dev) -> dict:
     paths' launches. The counting instantiation timed beside the timed one
     (the counters' cost); bands of fewer rows (the cost per row as the last
     wave empties); the triangle skip on and off by the triangle table's
-    block count, on meshes of 2 to 80 blocks in mesh_scene at 16 spp and on
-    the Cornell box with NEE at 1024 spp (the rule TRI_SKIP_ENGAGE)."""
+    block count, on meshes of 2 to 1280 blocks in mesh_scene at 16 spp
+    (with the direction lists' grid, entries, host seconds and work a fold)
+    and on the Cornell box with NEE at 1024 spp (the rule TRI_SKIP_ENGAGE);
+    on icosphere(5), past the lists' budget, the lists at each grid of
+    BIN_GRIDS (the rule BIN_TESTS)."""
     res = {}
     _, d2, cam2 = scene_on(dev, "demo2")
     kw1 = dict(img_w=800, img_h=600, n_samples=16384, root=128, max_depth=5)
@@ -1194,18 +1207,43 @@ def phase_design(dev) -> dict:
         r["counting_over_timed"] = r["ms_counting_launch"] / r["ms_50_rows"]
     v2, f2 = meshgen.icosphere(2)
     meshes = {"icosphere(0)": meshgen.icosphere(0), "icosphere(1)": meshgen.icosphere(1),
-              "icosphere(2)[:128]": (v2, f2[:128]), "icosphere(2)": (v2, f2), "icosphere(3)": meshgen.icosphere(3)}
-    skip = {}
+              "icosphere(2)[:128]": (v2, f2[:128]), "icosphere(2)": (v2, f2), "icosphere(3)": meshgen.icosphere(3),
+              "icosphere(4)": meshgen.icosphere(4), "icosphere(5)": meshgen.icosphere(5)}
+    skip, outs = {}, {}
     for name, (v, f) in meshes.items():
         sc, cam, isect, _, w, h = scene_setup(dev, meshgen.mesh_scene(v, f), "sweep", False)
+        t0 = time.perf_counter()
+        _, cand, grid, _ = scene_kernel.tri_bins(isect.tri_layout)
+        pack_s = time.perf_counter() - t0
         kw = dict(isect=isect, img_w=w, img_h=h, n_rows=50, n_samples=16, root=4, max_depth=5)
         on = render_block_scene(sc, cam, 300, 0, 0, tri_skip=True, **kw)
         off = render_block_scene(sc, cam, 300, 0, 0, tri_skip=False, **kw)
         check(bits_equal(on, off), f"{name}: the triangle skip changes the result")
-        skip[name] = {"blocks": isect.tri_layout.n_blocks,
+        outs[name] = on
+        c = work_counts(sc, cam, 300, 0, 50 * w, dev, tri_skip=True, **kw)
+        skip[name] = {"blocks": isect.tri_layout.n_blocks, "bin_grid": grid, "list_entries": len(cand),
+                      "lists_pack_s": pack_s, **entered_share(c, isect),
                       "ms_on": median_ms(lambda: render_block_scene(sc, cam, 300, 0, 0, tri_skip=True, **kw)),
                       "ms_off": median_ms(lambda: render_block_scene(sc, cam, 300, 0, 0, tri_skip=False, **kw)),
                       "engaged": scene_kernel.tri_skip_engaged(isect.tri_layout.n_blocks)}
+    # The lists' grid on a mesh past their budget: each grid's lists built anew
+    # (a fresh layout), their host seconds and entries, and the skip's ms.
+    grids = {}
+    v5, f5 = meshgen.icosphere(5)
+    for grid in sorted(scene_kernel.BIN_GRIDS):
+        sc, cam, isect, _, w, h = scene_setup(dev, meshgen.mesh_scene(v5, f5), "sweep", False)
+        t0 = time.perf_counter()
+        _, cand, _, _ = scene_kernel.tri_bins(isect.tri_layout, grid=grid)
+        pack_s = time.perf_counter() - t0
+        kw = dict(isect=isect, img_w=w, img_h=h, n_rows=50, n_samples=16, root=4, max_depth=5, tri_skip=True)
+        check(bits_equal(render_block_scene(sc, cam, 300, 0, 0, **kw), outs["icosphere(5)"]),
+              f"icosphere(5), grid {grid}: other bits")
+        c = work_counts(sc, cam, 300, 0, 50 * w, dev, **kw)
+        grids[grid] = {"list_entries": len(cand), "lists_pack_s": pack_s,
+                       "list_entries_per_fold": entered_share(c, isect)["tri_list_entries_per_fold"],
+                       "ms_on": median_ms(lambda: render_block_scene(sc, cam, 300, 0, 0, **kw))}
+        del isect, sc
+    skip["icosphere(5) by the lists' grid"] = grids
     skip["demo5 (NEE, 1024 spp)"] = {"blocks": isect5.tri_layout.n_blocks, "ms_on": res["K7"]["ms_skip_on"],
                                       "ms_off": res["K7"]["ms_skip_off"],
                                       "engaged": scene_kernel.tri_skip_engaged(isect5.tri_layout.n_blocks)}
@@ -1214,79 +1252,100 @@ def phase_design(dev) -> dict:
     return res
 
 
-# ---- phase 15: the scene kernel's NEE arm, step by step ---------------------
+# ---- phase 15: the triangle fold, step by step --------------------------------
 
-# The design steps of the NEE arm over the triangle table, each undone or
-# taken further by a text edit of the current sources (file, text in the
-# sources, text in the variant): a, the NEE launches in sweep mode on a
-# policy of their own (GEO_SWEEP), compiled apart from the scan's walk, the
-# shadow ray folded where it is drawn; b, a with the shadow ray carried to
-# the next bounce and folded beside its ray; d, b with the triangle table's
-# padding slots passed over; e, d with the table staged in shared memory
-# (the sources as they are). With --parent, the parent's build is timed
-# beside them.
-DEFER = ("scene_geom.cuh", "  static constexpr bool DEFER_SHADOW = GEO == GEO_SWEEP;",
-         "  static constexpr bool DEFER_SHADOW = false;")
-STAGED_LOOP = (
-    "    const float4* st = tri_stage();\n"
-    "    for (int e = 0; e < n_slots; ++e) {\n"
-    "      const float4 ra = st[e], rb = st[FLUX_TRI_STAGED + e], rc = st[2 * FLUX_TRI_STAGED + e];\n"
-    "      const int idx = __float_as_int(ra.w);\n"
-    "      // Padding (NaN vertices) is never hit, and its determinant would take\n"
-    "      // the division's slow path.\n"
-    "      if (idx < 0) continue;\n"
-    "      const V3 v0 = xyz(ra), e1 = xyz(rb), e2 = xyz(rc);\n")
-LOOP = (
-    "    for (int e = 0; e < n_slots; ++e) {\n"
-    "      const int idx = __ldg(&g.tri_idx[e]);\n"
-    "      if (idx < 0) continue;  // padding (NaN vertices): never hit\n"
-    "      const V3 v0 = xyz(__ldg(&g.tri_v0[e])), e1 = xyz(__ldg(&g.tri_e1[e])), e2 = xyz(__ldg(&g.tri_e2[e]));\n")
-UNSTAGED = [
-    ("scene_geom.cuh", "    if constexpr (GEO == GEO_SWEEP) {\n      float4* st = tri_stage();",
-     "    if constexpr (false) {\n      float4* st = tri_stage();"),
-    ("scene_geom.cuh", STAGED_LOOP, LOOP),
-]
-PADDED = [UNSTAGED[0], ("scene_geom.cuh", STAGED_LOOP,
-                        LOOP.replace("      if (idx < 0) continue;  // padding (NaN vertices): never hit\n", ""))]
-FINAL = "e: d, the triangle table staged in shared memory"
-ARM_VARIANTS = {
-    "a: the sweep's NEE launches apart, the shadow ray folded where it is drawn": (DEFER,),
-    "b: a, the shadow ray folded beside the next bounce's ray": tuple(PADDED),
-    "d: b, the padding slots passed over": tuple(UNSTAGED),
-    FINAL: (),
-}
+# The design steps of the triangle walk, each a build of the current sources
+# with a text edit (file, text in the sources, text in the variant), or of
+# the parent's (--parent): the parent's build as it is (step 1's counts and
+# times), the parent's build with the cycles of its triangle box tests and
+# folds counted in the sphere walk's clock counters (which its triangle
+# launches, in sweep mode, leave unused); a, the repaired walk over the
+# blocks' boxes one by one in table order, without the tree; t, the
+# repaired walk over the parent's two levels (groups of 8 blocks, then their
+# blocks, in table order, each lane on its own path); and, timed for what a
+# part costs and with their bits not held, the tree without the list (x)
+# and without the widening either (y).
 PARENT = "the parent's build"
+PARENT_LAPS = "the parent's build, triangle walk timed"
+TREE_CALL = ("      walk_tree_with(\n"
+             "          g.tri_tree, g.tri_block_leaves, inv_d,\n"
+             "          [&](float4 lo, float4 hi) { return tri_box_enter(lo, hi, o, inv_d, pad, cap, strict); }, "
+             "tests, entered,\n"
+             "          cnt, CLK_TRI_BOX, leaf);\n")
+ONE_LEVEL_TREE = ("scene_geom.cuh", TREE_CALL,
+                  "      for (int b = 0; b < g.n_tri_blocks && !stopped; ++b) {\n"
+                  "        const float4* box = g.tri_tree + 2 * (g.tri_block_leaves - 1 + b);\n"
+                  "        tests += 1u;\n"
+                  "        if (tri_box_enter(__ldg(&box[0]), __ldg(&box[1]), o, inv_d, pad, cap, strict)) {\n"
+                  "          entered += 1u;\n"
+                  "          leaf(b);\n"
+                  "        }\n"
+                  "      }\n")
+# The tree's level of nodes over 8 leaves holds the parent's group boxes: the
+# unions of 8 blocks' boxes in table order, here widened as every box is.
+TWO_LEVEL_TREE = ("scene_geom.cuh", TREE_CALL,
+                  "      const int grp = min(8, g.tri_block_leaves);\n"
+                  "      const float4* group = g.tri_tree + 2 * (g.tri_block_leaves / grp - 1);\n"
+                  "      const float4* box = g.tri_tree + 2 * (g.tri_block_leaves - 1);\n"
+                  "      for (int s = 0; s * grp < g.n_tri_blocks && !stopped; ++s) {\n"
+                  "        tests += 1u;\n"
+                  "        if (!tri_box_enter(__ldg(&group[2 * s]), __ldg(&group[2 * s + 1]), o, inv_d, pad, cap, "
+                  "strict)) continue;\n"
+                  "        for (int b = s * grp; b < min(s * grp + grp, g.n_tri_blocks) && !stopped; ++b) {\n"
+                  "          tests += 1u;\n"
+                  "          if (tri_box_enter(__ldg(&box[2 * b]), __ldg(&box[2 * b + 1]), o, inv_d, pad, cap, strict)) {\n"
+                  "            entered += 1u;\n"
+                  "            leaf(b);\n"
+                  "          }\n"
+                  "        }\n"
+                  "      }\n")
+PARENT_LAP_EDIT = ("scene_geom.cuh",
+                   "g.tri_skip != 0, o, inv_d, rs_tri, tr_t, false,\n                  tests, entered, cnt, NO_LAPS,",
+                   "g.tri_skip != 0, o, inv_d, rs_tri, tr_t, false,\n                  tests, entered, cnt, CLK_SPH_BOX,")
+NO_LIST = ("scene_geom.cuh", "      if (!stopped) {\n        long long t = cnt.now();",
+           "      if (false) {\n        long long t = cnt.now();")
+NO_WIDENING = ("scene_geom.cuh",
+               "      const V3 pad = tri_pads(__ldg(&g.tri_tree[0]), __ldg(&g.tri_tree[1]), o, inv_d, g.tri_rcap);",
+               "      const V3 pad = V3{0.0f, 0.0f, 0.0f};")
+FINAL = "b: the tree over the blocks (the sources)"
+ONE_LEVEL_STEP = "a: the blocks' boxes one by one, widened, with the list"
+TWO_LEVEL_STEP = "t: the parent's two levels in table order, widened, with the list"
+# Builds whose bits are not held (not exact: what a part of the design costs).
+INEXACT = ("x: b without the list (not exact)", "y: b without the widening and the list (not exact)")
+# name -> (parent's sources or not, edits)
+TRI_VARIANTS = {
+    PARENT_LAPS: (True, (PARENT_LAP_EDIT,)),
+    ONE_LEVEL_STEP: (False, (ONE_LEVEL_TREE,)),
+    TWO_LEVEL_STEP: (False, (TWO_LEVEL_TREE,)),
+    INEXACT[0]: (False, (NO_LIST,)),
+    INEXACT[1]: (False, (NO_LIST, NO_WIDENING)),
+}
 VARIANT_FILES = ("flux_trace.cuh", "scan_walk.cuh", "scene_geom.cuh", "scene_megakernel.cu")
-# The NEE arm's launches (seed 0, depth 5, demo5 512 wide): its four rows of
-# phase 13, counted and timed; then rows timed beside them that the same
-# instantiations take: the triangle fold without NEE (mesh1280, K6) and the
-# Cornell box with 19 more planes (the plane table; 8 rows).
-ARM_ROWS = {
-    "K7 sweep+tri+nee+trilight": dict(name="demo5", row0=250, n_rows=50, n_samples=1024, root=32, nee=True),
-    "K7+K4 sweep+tri+nee+trilight+physical": dict(name="demo5", row0=250, n_rows=50, n_samples=64, root=8,
-                                                  nee=True, physical=True),
-    "K7+K2 sweep+tri+nee+trilight+stats": dict(name="demo5", row0=256, n_rows=128, n_samples=8, root=4, nee=True,
-                                               stats=True),
-    "K7+K4+K2 sweep+tri+nee+trilight+physical+stats": dict(name="demo5", row0=256, n_rows=128, n_samples=16,
-                                                           root=8, nee=True, physical=True, stats=True),
-}
-ARM_TIMED_ROWS = {
+# The triangle fold's rows of phase 13 (seed 0, depth 5, 800 wide): K6 on
+# mesh1280, K6 + K4 and K6 + K4 + K2 on mesh_ico.
+TRI_ROWS = {
     "K6 sweep+tri": dict(name="mesh1280", row0=300, n_rows=50, n_samples=16, root=4),
-    "K7+K4 on demo5 with 19 more planes": dict(name="demo5planes", row0=252, n_rows=8, n_samples=64, root=8,
-                                               nee=True, physical=True),
+    "K6+K4 sweep+tri+physical": dict(name="mesh_ico", row0=300, n_rows=50, n_samples=16, root=4, physical=True),
+    "K6+K4+K2 sweep+tri+physical+stats": dict(name="mesh_ico", row0=256, n_rows=128, n_samples=8, root=4,
+                                              physical=True, stats=True),
+    # Past the direction lists' budget (their grid coarser than the finest).
+    "K6 sweep+tri, mesh20480": dict(name="mesh20480", row0=300, n_rows=50, n_samples=16, root=4),
 }
 
 
-def start_variant_builds() -> dict:
-    """Writes each design variant's sources under the build directory, in a
-    folder named by a hash of the sources and the flags as ops/build.py
-    names a library, and starts one nvcc for each that is not built yet.
-    Returns (process or None, library, start) by variant."""
-    base = {f: (build.CSRC / f).read_text() for f in VARIANT_FILES}
+def start_variant_builds(parent=None) -> dict:
+    """Writes each design variant's sources (of this checkout, or of the
+    parent's) under the build directory, in a folder named by a hash of the
+    sources and the flags as ops/build.py names a library, and starts one
+    nvcc for each that is not built yet (a variant of the parent's only with
+    ``parent``). Returns (process or None, library, start, package) by
+    variant."""
     running = {}
-    for name, edits in ARM_VARIANTS.items():
-        if not edits:
+    for name, (of_parent, edits) in TRI_VARIANTS.items():
+        if of_parent and parent is None:
             continue
+        bld = parent.ops.build if of_parent else build
+        base = {f: (bld.CSRC / f).read_text() for f in VARIANT_FILES}
         stale = [f for f, new, _ in edits if base[f].count(new) != 1]
         if stale:
             log(f"build: variant {name!r} left out: its edit of {', '.join(stale)} no longer applies")
@@ -1294,37 +1353,36 @@ def start_variant_builds() -> dict:
         srcs = dict(base)
         for f, new, old in edits:
             srcs[f] = srcs[f].replace(new, old)
-        digest = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(bld.NVCC_FLAGS).encode())
         for f in VARIANT_FILES:
             digest.update(f.encode() + b"\0" + srcs[f].encode())
         d = build.BUILD_DIR / "variants" / digest.hexdigest()[:16]
         lib = d / "libscene_megakernel.so"
+        pkg = parent if of_parent else None
         if lib.exists():
-            running[name] = (None, lib, time.perf_counter())
+            running[name] = (None, lib, time.perf_counter(), pkg)
             continue
         d.mkdir(parents=True, exist_ok=True)
         for f, text in srcs.items():
             (d / f).write_text(text)
         tmp = d / f"lib.{os.getpid()}.tmp"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(tmp), str(d / "scene_megakernel.cu")]
+        cmd = [bld._nvcc(), *bld.NVCC_FLAGS, "-o", str(tmp), str(d / "scene_megakernel.cu")]
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib,
-                         time.perf_counter())
+                         time.perf_counter(), pkg)
     return running
 
 
 def finish_variant_builds(running: dict, parent=None) -> dict:
-    """Waits for the variants' builds: variant -> (library, ptxas report);
-    with ``parent`` (its package, built) the parent's scene kernel too."""
+    """Waits for the variants' builds: variant -> (library, ptxas report,
+    package: None for this one), each library declared through its own
+    package's scene_kernel; with ``parent`` (its package, built) the
+    parent's scene kernel too."""
     built = {}
     if parent is not None:
-        # Declared as this package's: the same FluxScene and FluxGeom, and
-        # counters that are the first of this package's.
-        names = tuple(parent.ops.scene_kernel.COUNT_NAMES)
-        check(names == scene_kernel.COUNT_NAMES[:len(names)], "the parent's counters are not a prefix of these")
         lib = ctypes.CDLL(str(parent.ops.build.build("scene_megakernel")))
-        built[PARENT] = (scene_kernel.declare(lib, n_counts=len(names)),
-                         parent.ops.build.BUILD_LOG["scene_megakernel"]["ptxas"])
-    for name, (proc, lib, t0) in running.items():
+        built[PARENT] = (parent.ops.scene_kernel.declare(lib), parent.ops.build.BUILD_LOG["scene_megakernel"]["ptxas"],
+                         parent)
+    for name, (proc, lib, t0, pkg) in running.items():
         log_file = lib.with_suffix(".log")
         if proc is None:
             report = log_file.read_text()
@@ -1335,8 +1393,9 @@ def finish_variant_builds(running: dict, parent=None) -> dict:
             check(proc.returncode == 0, f"variant {name} failed to build:\n{report}")
             log_file.write_text(report)
             os.replace(lib.parent / f"lib.{os.getpid()}.tmp", lib)
-        built[name] = (scene_kernel.declare(ctypes.CDLL(str(lib))), report)
-    built[FINAL] = (scene_kernel._library(), build.BUILD_LOG["scene_megakernel"]["ptxas"])
+        sk = scene_kernel if pkg is None else pkg.ops.scene_kernel
+        built[name] = (sk.declare(ctypes.CDLL(str(lib))), report, pkg)
+    built[FINAL] = (scene_kernel._library(), build.BUILD_LOG["scene_megakernel"]["ptxas"], None)
     return built
 
 
@@ -1366,29 +1425,45 @@ def ptxas_rows(report: str, kernel: str = "scene_megakernel") -> dict:
     return rows
 
 
-def arm_setup(dev, shape: dict) -> dict:
-    """The scene, camera, intersector and lights of a row of the arm, and
-    its launch arguments."""
-    sd = stock("demo5planes") if shape["name"] == "demo5planes" else scene_by_name(shape["name"])
-    sc, cam, isect, lights, w, h = scene_setup(dev, sd, "sweep", shape.get("nee", False))
-    return dict(sc=sc, cam=cam, isect=isect, lights=lights, w=w, h=h, row0=shape["row0"], n_rows=shape["n_rows"],
+def submodule(pkg, name: str):
+    """Module ``name`` of package ``pkg`` (this one or the parent's): by
+    import, since a package may export a function of the module's name."""
+    import importlib
+
+    return importlib.import_module(f"{pkg.__name__}.{name}")
+
+
+def arm_setup(dev, shape: dict, pkg=None) -> dict:
+    """The scene, camera, intersector and lights of a row of phase 15, made
+    by ``pkg`` (this package if None), and its launch arguments."""
+    if pkg is None:
+        import flux_tpu_torch as pkg
+    sd = package_scene(pkg, shape["name"])
+    sc = submodule(pkg, "scene").compile_scene(sd, dev)
+    cam = submodule(pkg, "camera").camera_tensors(sd.camera_settings, sd.camera_data, sd.output_settings.pixel_size,
+                                                  dev)
+    ti = submodule(pkg, "ops.intersect")
+    isect = ti.Intersector(mode="sweep", tri_layout=ti.tri_layout(sc))
+    return dict(pkg=pkg, sc=sc, cam=cam, isect=isect, lights=None, w=sd.output_settings.image_width,
+                h=sd.output_settings.image_height, row0=shape["row0"], n_rows=shape["n_rows"],
                 n_samples=shape["n_samples"], root=shape["root"], stats=shape.get("stats", False),
                 physical=shape.get("physical", False))
 
 
 def raw_scene(lib, st: dict, counts=None, **skips) -> torch.Tensor:
-    """One launch of a scene kernel library as render_block_scene makes it
-    (seed 0, depth 5, the launch plan's split), not counted in the wrapper's
-    launches."""
+    """One launch of a scene kernel library as its package's
+    render_block_scene makes it (seed 0, depth 5, the launch plan's split),
+    not counted in the wrapper's launches."""
+    sk, swk = submodule(st["pkg"], "ops.scene_kernel"), submodule(st["pkg"], "ops.sweep_kernel")
     sc = st["sc"]
     n_pix = st["n_rows"] * st["w"]
     stats = st["stats"] and counts is None
     nee = st["lights"] is not None
     out = torch.empty((4 if stats else 3, n_pix), dtype=torch.float32, device=sc.device)
-    packed = pack_scene(sc, st["cam"], spheres=st["isect"].mode != "scan",
-                        planes=sc.num_planes <= sweep_kernel.MAX_PLANES)
-    geom, keep = scene_kernel.pack_geom(sc, st["isect"], st["lights"], sc.device, **skips)
-    split = sweep_kernel.launch_plan(n_pix, st["n_samples"]).split
+    packed = swk.pack_scene(sc, st["cam"], spheres=st["isect"].mode != "scan",
+                            planes=sc.num_planes <= swk.MAX_PLANES)
+    geom, keep = sk.pack_geom(sc, st["isect"], st["lights"], sc.device, **skips)
+    split = swk.launch_plan(n_pix, st["n_samples"]).split
     err = lib.flux_scene_render(
         out.data_ptr(), None if counts is None else counts.data_ptr(), ctypes.byref(packed), ctypes.byref(geom),
         int(stats), int(nee), int(st["physical"]), n_pix, st["w"], st["h"], st["row0"], 1, 0, st["n_samples"],
@@ -1398,68 +1473,48 @@ def raw_scene(lib, st: dict, counts=None, **skips) -> torch.Tensor:
     return out
 
 
-def arm_counts(lib, st: dict) -> dict:
-    """A build's counting launch on a row of the arm: the clock64 split of a
-    bounce (cycles per bounce of each phase and their shares; cycles are one
-    thread's, in a launch that spills, so shares count and cycles do not),
-    the shadow folds per bounce and per light sample, the share of light
-    samples whose shadow ray came through, and the triangle slots tested
-    per nearest and per shadow fold. With the triangle skip off a nearest
-    fold enters every block, so the blocks the shadow folds entered are the
-    rest of the count (a shadow fold stops at its first occluder, inside a
-    block: its slots are an upper bound)."""
+def tri_counts(lib, st: dict, laps_in_sphere_clocks: bool = False) -> dict:
+    """A build's counting launch on a row of phase 15 (no NEE: every fold is
+    a nearest fold): triangle blocks needed, entered and box-tested per
+    fold, the share of entered blocks beyond what a perfect skip needs (the
+    far side), the direction lists' entries read and triangles folded apart
+    per fold, and the clock64 split of a bounce: the nearest fold (spheres
+    and planes; triangle box tests; triangle folds; the lists), the scatter
+    and the rest. Cycles are one thread's, in launches that spill: shares
+    count, cycles do not. The parent's build counts its triangle walk in the
+    sphere walk's clocks (``laps_in_sphere_clocks``)."""
+    sk = submodule(st["pkg"], "ops.scene_kernel")
     n_pix = st["n_rows"] * st["w"]
-    counts = torch.zeros((scene_kernel.N_COUNTS, n_pix), dtype=torch.int32, device=st["sc"].device)
+    counts = torch.zeros((sk.N_COUNTS, n_pix), dtype=torch.int32, device=st["sc"].device)
     raw_scene(lib, st, counts=counts)
     torch.cuda.synchronize()
-    c = dict(zip(scene_kernel.COUNT_NAMES, ((counts.to(torch.int64) & 0xFFFFFFFF).sum(dim=1)).tolist()))
-    c["clk_nearest"] -= c["clk_needed_walk"]
-    c["clk_shadow"] -= c["clk_shadow_needed_walk"]
-    nb = st["isect"].tri_layout.n_blocks
-    check(not scene_kernel.tri_skip_engaged(nb), "the arm's rows fold the whole triangle table")
-    bounces, samples, folds = max(c["bounces"], 1), max(c["light_samples"], 1), c["shadow_folds"]
-    shadow_blocks = c["tri_blocks_entered"] - nb * c["bounces"]
-    phases = ("clk_nearest", "clk_light", "clk_shadow", "clk_scatter", "clk_mis")
-    total = max(sum(c[k] for k in phases), 1)
+    c = dict(zip(sk.COUNT_NAMES, ((counts.to(torch.int64) & 0xFFFFFFFF).sum(dim=1)).tolist()))
+    folds = max(c["bounces"], 1)
+    boxes, tri_folds = (("clk_sphere_boxes", "clk_sphere_folds") if laps_in_sphere_clocks
+                        else ("clk_tri_boxes", "clk_tri_folds"))
+    split = {"tri_box_tests": c.get(boxes, 0), "tri_folds": c.get(tri_folds, 0),
+             "tri_lists": c.get("clk_tri_exceptions", 0)}
+    split["spheres_and_planes"] = c["clk_nearest"] - c["clk_needed_walk"] - sum(split.values())
+    split["scatter"], split["mis"] = c["clk_scatter"], c["clk_mis"]
+    total = max(sum(split.values()), 1)
+    entered = max(c["tri_blocks_entered"], 1)
     return {
-        "bounces": c["bounces"], "light_samples": c["light_samples"], "shadow_folds": folds,
-        "shadow_rays_through": c["shadow_rays"],
-        "shadow_folds_per_bounce": folds / bounces, "shadow_folds_per_light_sample": folds / samples,
-        "through_per_light_sample": c["shadow_rays"] / samples,
-        "through_per_shadow_fold": c["shadow_rays"] / folds if folds else None,
-        "tri_slots_per_nearest_fold": scene_kernel.TRI_SCAN_BLOCK * nb,
-        "tri_slots_per_shadow_fold": scene_kernel.TRI_SCAN_BLOCK * shadow_blocks / folds if folds else None,
-        "tri_blocks_needed_per_bounce": c["tri_blocks_needed"] / bounces,
-        "bounce_cycles_share": {k: c[k] / total for k in phases},
-        "cycles_per_bounce": {k: c[k] / bounces for k in phases},
-        "path_counts": {k: c[k] for k in PATH_COUNTS},
-        "bound_counts": {k: c[k] for k in BOUND_COUNTS},
+        "bounces": c["bounces"], "path_counts": {k: c[k] for k in PATH_COUNTS},
+        "tri_blocks": st["isect"].tri_layout.n_blocks,
+        "tri_blocks_needed_per_fold": c["tri_blocks_needed"] / folds,
+        "tri_blocks_entered_per_fold": c["tri_blocks_entered"] / folds,
+        "tri_box_tests_per_fold": c["tri_box_tests"] / folds,
+        "entered_beyond_needed_share": (c["tri_blocks_entered"] - c["tri_blocks_needed"]) / entered,
+        "tri_list_entries_per_fold": c.get("tri_candidates", 0) / folds,
+        "tris_folded_apart_per_fold": c.get("tri_exceptions", 0) / folds,
+        "tris_needed_per_fold": c["tris_needed"] / folds,
+        "bounce_cycles_share": {k: v / total for k, v in split.items()},
+        "cycles_per_bounce": {k: v / folds for k, v in split.items()},
     }
 
 
-# Counters of the paths themselves: every build of the arm must count the
-# same; and the triangle counters the bound charges, which every build of
-# these sources must count alike.
+# Counters of the paths themselves: every build must count the same.
 PATH_COUNTS = ("bounces", "light_samples", "shadow_rays", "reverse_densities", "glossy_lobes")
-BOUND_COUNTS = ("tri_blocks_needed", "shadow_tri_blocks_needed", "tris_needed", "shadow_tris_needed")
-
-
-def arm_counting(dev, built: dict) -> dict:
-    """Phase 15's counting part: each build's counters on each row of the
-    arm, and each build's registers and spills; the path counters of every
-    build equal."""
-    res = {"ptxas": {n: ptxas_rows(r) for n, (_, r) in built.items()}}
-    for row, shape in ARM_ROWS.items():
-        st = arm_setup(dev, shape)
-        res[row] = {n: arm_counts(lib, st) for n, (lib, _) in built.items()}
-        log(f"NEE arm, counts ({row}, demo5 band {shape['n_rows']}x512, {shape['n_samples']} spp):",
-            json.dumps(res[row]))
-        paths = {json.dumps(r["path_counts"]) for r in res[row].values()}
-        check(len(paths) == 1, f"{row}: the builds count different paths")
-        bound = {json.dumps(r["bound_counts"]) for n, r in res[row].items() if n != PARENT}
-        check(len(bound) == 1, f"{row}: the builds count different work for the bound")
-    log("NEE arm (registers, spills, stack):", json.dumps(res["ptxas"]))
-    return res
 
 
 def in_turns(fns: dict, rounds: int = 6) -> dict:
@@ -1477,25 +1532,45 @@ def in_turns(fns: dict, rounds: int = 6) -> dict:
             "ms_quartile_spread": {n: float(np.subtract(*np.percentile(t, [75, 25]))) for n, t in times.items()}}
 
 
-def phase_arm_steps(dev, built: dict) -> dict:
-    """Phase 15: the NEE arm's design, step by step, on its launches. The
-    counting part (arm_counting); then every build, and the final build
-    with the triangle skip forced on (the shadow ray folded where it is
-    drawn, in the general instantiations), timed in turns on each row (6
-    rounds), with its sums bitwise against the final build's."""
-    res = arm_counting(dev, built)
-    for row, shape in {**ARM_ROWS, **ARM_TIMED_ROWS}.items():
-        st = arm_setup(dev, shape)
+def phase_tri_steps(dev, built: dict) -> dict:
+    """Phase 15: the triangle fold's design, step by step, on the rows of
+    TRI_ROWS. Each build's registers, spills and stack frame; each build's
+    counting launch (tri_counts; the path counters of every build equal);
+    then every build, and the final build with the triangle skip off (the
+    fold over every block), timed in turns (6 rounds), with their sums
+    against the final build's bits: every build of these sources equal, the
+    parent's said (its skip is not exact), and the final build's bits equal
+    with the skip off."""
+    res = {"ptxas": {n: ptxas_rows(r) for n, (_, r, _) in built.items()}}
+    log("triangle fold, builds (registers, spills, stack):", json.dumps(res["ptxas"]))
+    for row, shape in TRI_ROWS.items():
+        sts = {}
+        for n, (lib, _, pkg) in built.items():
+            key = "parent" if pkg is not None else "new"
+            if key not in sts:
+                sts[key] = arm_setup(dev, shape, pkg)
+        builds = {n: (lib, sts["parent" if pkg is not None else "new"]) for n, (lib, _, pkg) in built.items()}
+        counted = {n: tri_counts(lib, st, n == PARENT_LAPS) for n, (lib, st) in builds.items()}
+        log(f"triangle fold, counts ({row}, {shape['name']} band {shape['n_rows']}x800, {shape['n_samples']} spp):",
+            json.dumps(counted))
+        paths = {json.dumps(r["path_counts"]) for r in counted.values()}
+        fns = {n: (lambda lib=lib, st=st: raw_scene(lib, st)) for n, (lib, st) in builds.items() if n != PARENT_LAPS}
         final = built[FINAL][0]
-        fns = {n: (lambda lib=lib: raw_scene(lib, st)) for n, (lib, _) in built.items()}
-        fns["final, triangle skip on"] = lambda: raw_scene(final, st, tri_skip=True)
+        fns["b, the triangle skip off"] = lambda: raw_scene(final, sts["new"], tri_skip=False)
         ref = fns[FINAL]()
         torch.cuda.synchronize()
         r = in_turns(fns)
         r["bits_equal_final"] = {n: bits_equal(fn(), ref) for n, fn in fns.items()}
-        res.setdefault(row, {}).update(times=r)
-        log(f"NEE arm, times ({row}):", json.dumps(r))
-        check(all(r["bits_equal_final"].values()), f"{row}: a design step changes the result")
+        res[row] = {"counts": counted, "times": r, "paths_equal": len(paths) == 1}
+        log(f"triangle fold, times ({row}):", json.dumps(r))
+        check(all(v for n, v in r["bits_equal_final"].items() if n != PARENT and n not in INEXACT),
+              f"{row}: a build of these sources gives other bits")
+        if len(paths) != 1:
+            log(f"{row}: the builds count different paths (the parent's skip is not exact):", json.dumps(
+                {n: c["path_counts"] for n, c in counted.items()}))
+        check(len({json.dumps(c["path_counts"]) for n, c in counted.items()
+                   if built[n][2] is None and n not in INEXACT}) == 1,
+              f"{row}: the builds of these sources count different paths")
     return res
 
 
@@ -1516,15 +1591,16 @@ def load_parent(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["flux_tpu_torch_parent"] = mod
     spec.loader.exec_module(mod)
-    for sub in ("ops.build", "ops.scene_kernel", "render", "scene", "genscene", "meshgen"):
+    for sub in ("ops.build", "ops.scene_kernel", "ops.sweep_kernel", "ops.intersect", "camera", "render", "scene",
+                "genscene", "meshgen"):
         importlib.import_module(f"flux_tpu_torch_parent.{sub}")
     return mod
 
 
 def package_scene(pkg, name: str):
     """A row's SceneData as ``pkg`` (this package or the parent's) makes it."""
-    if name == "mesh1280":
-        return pkg.meshgen.mesh_scene(*pkg.meshgen.icosphere(3), name="mesh1280")
+    if name in ("mesh1280", "mesh20480"):
+        return pkg.meshgen.mesh_scene(*pkg.meshgen.icosphere(3 if name == "mesh1280" else 5), name=name)
     if name == "field16384":
         return pkg.genscene.sphere_field(16384, seed=0)
     return pkg.scene.load_scene(os.path.join(HERE, "scenes", f"{name}.yml"))
@@ -1545,11 +1621,11 @@ def parent_rows(dev, parent) -> dict:
     res = {}
     for cfg, shape in rows:
         pkgs = {"parent": parent, "new": flux_tpu_torch}
-        fns, outs = {}, {}
+        fns, outs, r_of = {}, {}, {}
         for label, pkg in pkgs.items():
-            r = pkg.render.Renderer(package_scene(pkg, shape["name"]), shape["root"], 5, seed=0, device=dev,
-                                    accel=shape.get("accel"), nee=shape.get("nee", False),
-                                    physical=shape.get("physical", False))
+            r = r_of[label] = pkg.render.Renderer(package_scene(pkg, shape["name"]), shape["root"], 5, seed=0,
+                                                  device=dev, accel=shape.get("accel"), nee=shape.get("nee", False),
+                                                  physical=shape.get("physical", False))
             fns[label] = (lambda r=r: r.render_rows_sum_range(shape["row0"], shape["n_rows"], 0, shape["n_samples"],
                                                               with_stats=shape.get("stats", False)))
             outs[label] = fns[label]()
@@ -1561,9 +1637,29 @@ def parent_rows(dev, parent) -> dict:
                     "ms": {n: float(np.median(t)) for n, t in times.items()},
                     "ms_quartile_spread": {n: float(np.subtract(*np.percentile(t, [75, 25])))
                                            for n, t in times.items()}}
+        if not res[cfg]["bits_equal"]:
+            # Only the parent's triangle skip, which was not exact, may differ:
+            # then the new launch must equal the fold over every block, the
+            # parent's and its own.
+            whole = {label: whole_fold(pkg, r_of[label], shape) for label, pkg in pkgs.items()}
+            res[cfg]["triangle_skip_of_the_parent"] = {
+                "new_equals_its_whole_fold": bits_equal(outs["new"], whole["new"]),
+                "new_equals_the_parents_whole_fold": bits_equal(outs["new"], whole["parent"])}
+            check(all(res[cfg]["triangle_skip_of_the_parent"].values()),
+                  f"{cfg}: the new build differs from the parent's and from the fold over every block")
         log(f"against the parent ({cfg}, {shape['name']} band {shape['n_rows']} rows, {shape['n_samples']} spp):",
             json.dumps(res[cfg]))
     return res
+
+
+def whole_fold(pkg, r, shape) -> torch.Tensor:
+    """A row's launch through ``pkg``'s scene kernel with the triangle skip
+    off (every triangle block folded), as the Renderer ``r`` would make it."""
+    return pkg.ops.scene_kernel.render_block_scene(
+        r.scene, r.cam, shape["row0"], 0, r.seed, isect=r.isect, img_w=r.width, img_h=r.height,
+        n_rows=shape["n_rows"], n_samples=shape["n_samples"], root=r.root, max_depth=r.max_depth, lights=r.lights,
+        physical=r.physical, with_stats=shape.get("stats", False), tri_skip=False).reshape(
+            shape["n_rows"], r.width, -1)
 
 
 def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
@@ -1607,7 +1703,7 @@ def main(argv=None) -> int:
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
         parent_built = None if parent is None else pool.submit(parent.ops.build.build_many,
                                                                list(parent.ops.build.LIBRARIES))
-        variants = start_variant_builds()
+        variants = start_variant_builds(parent)
         build.build_many(list(build.LIBRARIES))
         if parent_built is not None:
             parent_built.result()
@@ -1672,8 +1768,8 @@ def main(argv=None) -> int:
             kernels.append(entry)
     with phase_timer("14 design checks"):
         phase_design(dev)
-    with phase_timer("15 the NEE arm, step by step"):
-        phase_arm_steps(dev, built_variants)
+    with phase_timer("15 the triangle fold, step by step"):
+        phase_tri_steps(dev, built_variants)
     if parent is not None:
         with phase_timer("16 against the parent's build"):
             parent_rows(dev, parent)

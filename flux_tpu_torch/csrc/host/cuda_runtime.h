@@ -3,8 +3,10 @@
 //   g++ -std=c++17 -O2 -ffp-contract=off -I flux_tpu_torch/csrc/host ...
 // tests/test_torch_trace_host.py checks the sampler path with it,
 // tests/test_torch_nee_host.py the sweep of a scatter and a shadow ray,
-// tests/test_torch_scan_host.py the walk of scan_walk.cuh. It defines only
-// what the headers use; nothing here runs on a card.
+// tests/test_torch_scan_host.py the walk of scan_walk.cuh, and
+// tests/test_torch_tri_host.py and tests/test_torch_tri_walk_host.py the
+// triangle folds of scene_geom.cuh. It defines only what the headers use;
+// nothing here runs on a card.
 #pragma once
 
 #include <stdint.h>
@@ -69,3 +71,4 @@ inline bool __any_sync(unsigned, bool p) { return p; }
 inline bool __all_sync(unsigned, bool p) { return p; }
 inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }

@@ -24,8 +24,11 @@
 // and the cap), so a skipped node holds no block that could change the
 // result; an any-hit is the same boolean in any order.
 //
-// Triangle blocks (16 triangles) keep a table-order walk with a second level
-// of boxes over groups of FLUX_SUPER blocks (walk_blocks).
+// Triangle blocks (16 triangles) sit under the same kind of tree, one leaf a
+// block (walk_triangles in scene_geom.cuh), with boxes widened for
+// Möller–Trumbore's error (tri_pads below) and the triangles that error
+// cannot bound (a ray nearly in their plane) found apart, by the ray's
+// direction.
 
 #pragma once
 
@@ -34,7 +37,6 @@
 #define FLUX_SCAN_BLOCK 32
 #define FLUX_SCAN_LEAF 16  // spheres under one leaf of the sphere tree
 #define FLUX_TRI_BLOCK 16
-#define FLUX_SUPER 8  // triangle blocks under one second-level box
 
 // Work counters behind the tracer's ten (per pixel, summed over samples).
 // For nearest folds: the sphere blocks a ray had to enter (its box entered
@@ -51,6 +53,9 @@
 // operation bound: the triangle blocks needed by shadow rays (part of
 // CNT_TRI_NEEDED), the triangles those blocks hold without their padding
 // (all rays; shadow rays), and the shadow folds a sphere of the scan stopped.
+// Then the triangle walk's own: the triangles the direction's list offered
+// and those of them folded apart (walk_triangles), and the cycles of the
+// triangle tree's box tests, of its leaves' folds and of the list.
 // A triangle block is needed by a nearest fold if the ray enters its box at
 // or before the final hit, by a shadow ray that came through if it enters it
 // before t_max; a shadow ray a triangle stopped needs that one triangle.
@@ -76,7 +81,11 @@
 #define CNT_TRIS_NEEDED (FLUX_N_COUNTS + 21)
 #define CNT_SH_TRIS_NEEDED (FLUX_N_COUNTS + 22)
 #define CNT_SH_SPH_STOPS (FLUX_N_COUNTS + 23)
-#define FLUX_SCENE_N_COUNTS (FLUX_N_COUNTS + 24)
+#define CNT_TRI_CANDS (FLUX_N_COUNTS + 24)
+#define CNT_TRI_EXC (FLUX_N_COUNTS + 25)
+#define CLK_TRI_BOX (FLUX_N_COUNTS + 26)  // + 1: CLK_TRI_FOLD
+#define CLK_TRI_EXC (FLUX_N_COUNTS + 28)
+#define FLUX_SCENE_N_COUNTS (FLUX_N_COUNTS + 29)
 #define NO_LAPS (-1)
 
 // What the slab test must allow for, so that a skipped block never holds a
@@ -103,15 +112,42 @@ __device__ __forceinline__ RaySlack ray_slack(V3 d) {
   return rs;
 }
 
+// What a triangle box must allow for: where Möller–Trumbore, in float32 op
+// by op as triangle_t computes it, can put an accepted hit. With u = 2^-24,
+// K = |d|·|e1|·|e2| and R = K / |det| (>= 1; 1/R is |d̂·n̂| times the sine
+// of the triangle's angle at v0), each cross product, three-term dot and the
+// division round as the standard model says, so |det' - det| <= 5.9u·K and
+// the numerators of u, v and t are off by at most 5.9u·|s|·|d|·|e2|,
+// 5.9u·|s|·|d|·|e1| and 5.9u·|s|·|e1|·|e2| (s = o - v0, itself rounded: read
+// as the exact offset of an origin u·|s| away). An accepted (u', v', t') has
+// u', v' in [0, 1]; the residual r = (v0 + u'e1 + v'e2) - (o + t'd) then
+// satisfies r·(d × e2) = u'det - U, r·(e1 × d) = v'det - V and
+// r·(e1 × e2) = t'det - T exactly, each bounded by the above (7.9u·K +
+// 5.9u·|s|·|d|·|e|, and 7.9u·|t'|·K + 5.9u·|s|·|e1|·|e2|), and in the dual
+// basis of (e1, e2, -d)
+//   |r| <= u·R·(7.9·(|e1| + |e2| + |t'|·|d|) + 17.7·|s|).
+// With D the distance from o to the far corner of a box that holds the
+// triangle, |s| <= D, |e1|, |e2| <= 2D and |t'|·|d| <= D + dist, so the hit
+// lies within dist <= u·D·(114.4·R + 6) of the triangle (of its box) as long
+// as 7.9u·R <= 1/2. For R <= R_cap that is under 64·(R_cap + 1) EPS_F32·D
+// (R_cap <= 2^13), and a box widened by that holds every hit such a triangle
+// can give, at its own t: the slab test against the cap is exact for it.
+// With D to the far corner of the whole table's box, one widening serves
+// every box of the tree (tri_pads). Beyond R = 2^20 no box bounds a hit at
+// all: a ray in a triangle's plane can be accepted anywhere along its line
+// (det and the numerators are all rounding noise). The triangles with R >
+// R_cap for a ray are folded apart (walk_triangles). R_cap is the wrapper's
+// scene_kernel.TRI_RCAP; the bounds are worked in PERF.md.
+
 // Slab test of one thread's ray against a box, with pruning against `cap`:
 // a block whose entry t0 lies beyond the thread's current winner (or at or
 // beyond a shadow ray's t_max, `strict`) cannot change its result. The box
 // is widened by what the tests inside may be off by: for spheres
 // (drift + 16 ulp)·D²/r_min, with D the distance to the box's farthest corner
-// and 1/r_min kept in lo.w (0 for triangle boxes), and 32 ulp·(1 + D²) for
-// rounding in general; the entry t0 is eased by the drift's shift. inv_d is
-// ±inf on an axis the ray is parallel to, and 0·inf is NaN there when the
-// origin lies on the slab plane: a NaN slab value counts as "enter".
+// and 1/r_min kept in lo.w, and 32 ulp·(1 + D²) for rounding in general;
+// the entry t0 is eased by the drift's shift. inv_d is ±inf on an axis the
+// ray is parallel to, and 0·inf is NaN there when the origin lies on the slab
+// plane: a NaN slab value counts as "enter".
 __device__ __forceinline__ bool box_enter(float4 lo, float4 hi, V3 o, V3 inv_d, float cap, bool strict,
                                           RaySlack rs) {
   if (isnan(lo.x)) return false;  // an empty box
@@ -132,47 +168,53 @@ __device__ __forceinline__ bool box_enter(float4 lo, float4 hi, V3 o, V3 inv_d, 
   return t0 <= t1 && t1 > T_MIN && (strict ? t0_eased < cap : t0_eased <= cap);
 }
 
+// The slab test of a triangle box (see box_enter): with the pad of one ray,
+// per axis (pad·|inv_d|), for every box of the table (tri_pads).
+__device__ __forceinline__ bool tri_box_enter(float4 lo, float4 hi, V3 o, V3 inv_d, V3 pad, float cap, bool strict) {
+  if (isnan(lo.x)) return false;  // an empty box
+  const float tx0 = (lo.x - o.x) * inv_d.x, tx1 = (hi.x - o.x) * inv_d.x;
+  const float ty0 = (lo.y - o.y) * inv_d.y, ty1 = (hi.y - o.y) * inv_d.y;
+  const float tz0 = (lo.z - o.z) * inv_d.z, tz1 = (hi.z - o.z) * inv_d.z;
+  if (isnan(tx0) || isnan(tx1) || isnan(ty0) || isnan(ty1) || isnan(tz0) || isnan(tz1)) return true;
+  const float t0 = fmaxf(fminf(tx0, tx1) - pad.x, fmaxf(fminf(ty0, ty1) - pad.y, fminf(tz0, tz1) - pad.z));
+  const float t1 = fminf(fmaxf(tx0, tx1) + pad.x, fminf(fmaxf(ty0, ty1) + pad.y, fmaxf(tz0, tz1) + pad.z));
+  return t0 <= t1 && t1 > T_MIN && (strict ? t0 < cap : t0 <= cap);
+}
+
+// The pad of a ray from o for every triangle box of a table whose boxes all
+// lie in `root`, per axis in t: box_enter's rounding term and the
+// Möller–Trumbore term 64·(R_cap + 1) EPS_F32·D, with D² the root's far2,
+// which bounds every box's.
+__device__ __forceinline__ V3 tri_pads(float4 lo, float4 hi, V3 o, V3 inv_d, float rcap) {
+  const float dx0 = lo.x - o.x, dx1 = hi.x - o.x;
+  const float dy0 = lo.y - o.y, dy1 = hi.y - o.y;
+  const float dz0 = lo.z - o.z, dz1 = hi.z - o.z;
+  const float far2 = fmaxf(dx0 * dx0, dx1 * dx1) + fmaxf(dy0 * dy0, dy1 * dy1) + fmaxf(dz0 * dz0, dz1 * dz1);
+  const float pad = 32.0f * EPS_F32 * (1.0f + far2) + 64.0f * (rcap + 1.0f) * EPS_F32 * sqrtf(far2);
+  return V3{pad * fabsf(inv_d.x), pad * fabsf(inv_d.y), pad * fabsf(inv_d.z)};
+}
+
 // Calls fold(b) for every block whose box the ray enters (every block with
 // the skip off), in table order, re-reading `cap` before each test; stops
-// when fold returns true. With `sbox`, a group of FLUX_SUPER blocks is
-// tested as one box first: the group's box holds its blocks' boxes and the
-// cap only tightens, so a block a ray would enter lies in an entered group.
-// With `clk` (not NO_LAPS) the counting instantiations add the cycles of box
-// tests to counter clk and those of folds to clk + 1.
+// when fold returns true. With `clk` (not NO_LAPS) the counting
+// instantiations add the cycles of box tests to counter clk and those of
+// folds to clk + 1.
 template <class C, class F>
-__device__ __forceinline__ void walk_blocks(const float4* __restrict__ box, const float4* __restrict__ sbox,
-                                            int n_blocks, bool skip, V3 o, V3 inv_d, RaySlack rs,
-                                            const float& cap, bool strict, uint32_t& tests, uint32_t& entered,
-                                            C& cnt, int clk, F fold) {
+__device__ __forceinline__ void walk_blocks(const float4* __restrict__ box, int n_blocks, bool skip, V3 o,
+                                            V3 inv_d, RaySlack rs, const float& cap, bool strict, uint32_t& tests,
+                                            uint32_t& entered, C& cnt, int clk, F fold) {
   long long t = cnt.now();
-  if (!skip) {
-    for (int b = 0; b < n_blocks; ++b) {
-      entered += 1u;
-      const bool stop = fold(b);
-      if (clk != NO_LAPS) cnt.lap(clk + 1, t);
-      if (stop) return;
-    }
-    return;
-  }
-  const int group = sbox != nullptr ? FLUX_SUPER : n_blocks;
-  for (int b0 = 0, s = 0; b0 < n_blocks; b0 += group, ++s) {
-    if (sbox != nullptr) {
-      tests += 1u;
-      const bool in = box_enter(__ldg(&sbox[2 * s]), __ldg(&sbox[2 * s + 1]), o, inv_d, cap, strict, rs);
-      if (clk != NO_LAPS) cnt.lap(clk, t);
-      if (!in) continue;
-    }
-    const int b1 = min(b0 + group, n_blocks);
-    for (int b = b0; b < b1; ++b) {
+  for (int b = 0; b < n_blocks; ++b) {
+    if (skip) {
       tests += 1u;
       const bool in = box_enter(__ldg(&box[2 * b]), __ldg(&box[2 * b + 1]), o, inv_d, cap, strict, rs);
       if (clk != NO_LAPS) cnt.lap(clk, t);
       if (!in) continue;
-      entered += 1u;
-      const bool stop = fold(b);
-      if (clk != NO_LAPS) cnt.lap(clk + 1, t);
-      if (stop) return;
     }
+    entered += 1u;
+    const bool stop = fold(b);
+    if (clk != NO_LAPS) cnt.lap(clk + 1, t);
+    if (stop) return;
   }
 }
 
@@ -201,17 +243,17 @@ __device__ __forceinline__ int walk_majority(unsigned group, int p) {
 }
 
 // Calls fold(leaf) for every leaf whose box, and every box above it, the ray
-// enters with the cap as it stands: depth first over the implicit tree of
-// `n_leaves` leaves (a power of two; 2·n_leaves - 1 nodes of two float4
-// each), the nearer child first, with the lanes of the warp that are here
-// together (above); a lane stops folding once its fold returns true, and the
-// walk ends when every lane has. `trail` holds one bit for each level from
+// enters (enter(lo, hi), which reads the cap as it stands, a box holding
+// every box below it passing whenever one of those does): depth first over
+// the implicit tree of `n_leaves` leaves (a power of two; 2·n_leaves - 1
+// nodes of two float4 each), the nearer child first, with the lanes of the
+// warp that are here together (above); a lane stops folding once its fold
+// returns true, and the walk ends when every lane has. `trail` holds one bit for each level from
 // the root to the current node: set while that level's other child is still
 // to be visited.
-template <class C, class F>
-__device__ __forceinline__ void walk_tree(const float4* __restrict__ tree, int n_leaves, V3 o, V3 inv_d,
-                                          RaySlack rs, const float& cap, bool strict, uint32_t& tests,
-                                          uint32_t& entered, C& cnt, int clk, F fold) {
+template <class C, class E, class F>
+__device__ __forceinline__ void walk_tree_with(const float4* __restrict__ tree, int n_leaves, V3 inv_d, E enter,
+                                               uint32_t& tests, uint32_t& entered, C& cnt, int clk, F fold) {
   const unsigned group = __activemask();
   const int first_leaf = n_leaves - 1;
   long long t = cnt.now();
@@ -221,7 +263,7 @@ __device__ __forceinline__ void walk_tree(const float4* __restrict__ tree, int n
   for (;;) {
     const float4 lo = __ldg(&tree[2 * i]), hi = __ldg(&tree[2 * i + 1]);
     tests += done ? 0u : 1u;
-    const bool in = !done && box_enter(lo, hi, o, inv_d, cap, strict, rs);
+    const bool in = !done && enter(lo, hi);
     cnt.lap(clk, t);
     if (walk_any(group, in)) {
       if (i < first_leaf) {
@@ -244,6 +286,16 @@ __device__ __forceinline__ void walk_tree(const float4* __restrict__ tree, int n
     trail ^= 1u;
     i = ((i - 1) ^ 1) + 1;  // the other child
   }
+}
+
+// walk_tree_with with box_enter's test of the ray (o, inv_d) against the cap.
+template <class C, class F>
+__device__ __forceinline__ void walk_tree(const float4* __restrict__ tree, int n_leaves, V3 o, V3 inv_d,
+                                          RaySlack rs, const float& cap, bool strict, uint32_t& tests,
+                                          uint32_t& entered, C& cnt, int clk, F fold) {
+  walk_tree_with(
+      tree, n_leaves, inv_d, [&](float4 lo, float4 hi) { return box_enter(lo, hi, o, inv_d, cap, strict, rs); }, tests,
+      entered, cnt, clk, fold);
 }
 
 // A sphere table in device memory (ops/scene_kernel.py::pack_sphere_table).
@@ -274,7 +326,7 @@ __device__ __forceinline__ void walk_spheres(const SphereTable& T, V3 o, V3 inv_
     walk_tree(T.tree, T.block_leaves * FLUX_LEAVES_PER_BLOCK, o, inv_d, rs, cap, strict, tests, entered, cnt, clk,
               [&](int leaf) { return fold(leaf * FLUX_SCAN_LEAF, FLUX_SCAN_LEAF); });
   } else {
-    walk_blocks(T.box, nullptr, T.n_blocks, T.walk != 0, o, inv_d, rs, cap, strict, tests, entered, cnt, clk,
+    walk_blocks(T.box, T.n_blocks, T.walk != 0, o, inv_d, rs, cap, strict, tests, entered, cnt, clk,
                 [&](int b) { return fold(b * FLUX_SCAN_BLOCK, FLUX_SCAN_BLOCK); });
   }
 }

@@ -4,7 +4,8 @@
 // from scene_megakernel.cu so that the folds compile as host code too
 // (csrc/host/cuda_runtime.h; tests/test_torch_tri_host.py holds the fused
 // fold of a scatter ray and a carried shadow ray to the two separate folds
-// there, ray by ray).
+// there, ray by ray, and tests/test_torch_tri_walk_host.py the triangle
+// walk with its skip to the fold over every block).
 
 #pragma once
 
@@ -31,8 +32,9 @@ struct FluxGeom {
   const int* tri_idx;  // original triangle index, -1 on padding
   const float4* tri_n;  // unit normal, exponent
   const float4* tri_alb;  // color × param, kind (as bits)
-  const float4* tri_box;
-  const float4* tri_sbox;  // per FLUX_SUPER blocks: lo, hi; null: one level of boxes
+  const float4* tri_tree;  // per node of the tree over the blocks (leaves: the blocks' boxes)
+  const int* tri_bin_off;  // per direction bin (tri_bin): its run of tri_cand, and the end
+  const float4* tri_cand;  // w = N·R_cap / (|e1|·|e2|), the table slot (as bits)
   // Lights (NEE): n_lights rows; the tri_* rows only with lights_have_tris.
   const float4* l_center;  // x, y, z, radius
   const float4* l_emit;
@@ -49,6 +51,8 @@ struct FluxGeom {
   int sph_block_leaves;  // n_sph_blocks up to a power of two
   int n_planes;
   int n_tri_blocks;
+  int tri_block_leaves;  // n_tri_blocks up to a power of two
+  int tri_bin_grid;  // G: the direction bins are 3·G² cells of a cube
   int scan;  // spheres come from the table; else from c_scene, swept
   int ns_base;  // the scene's sphere count: planes are numbered from here
   int plane_row0;  // c_scene material row of plane 0
@@ -57,6 +61,7 @@ struct FluxGeom {
   int tri_skip;
   int n_lights;
   int lights_have_tris;
+  float tri_rcap;  // R_cap (scan_walk.cuh): the boxes hold the hits of triangles with R <= R_cap
 };
 
 // The sphere table of a launch, walked as the launch asks.
@@ -106,6 +111,34 @@ __device__ __forceinline__ float scene_plane_den(const FluxGeom& g, V3 d, int j)
   if (g.pl_point == nullptr) return plane_den(d, j);
   const float4 n = __ldg(&g.pl_normal[j]);
   return d.x * n.x + d.y * n.y + d.z * n.z;
+}
+
+// The direction bin of a ray (the table's tri_bin_off): the cube face of d's
+// largest component, and on it a cell of a G × G grid of (the other two
+// components) / (that one). d and -d share a bin, as they share the
+// triangles they run nearly parallel to. A NaN direction takes bin 0 (its
+// tests fail whatever the bin).
+__device__ __forceinline__ int tri_bin(V3 d, int G) {
+  const float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
+  int face;
+  float m, a, b;
+  if (ax >= ay && ax >= az) {
+    face = 0;
+    m = d.x, a = d.y, b = d.z;
+  } else if (ay >= az) {
+    face = 1;
+    m = d.y, a = d.x, b = d.z;
+  } else {
+    face = 2;
+    m = d.z, a = d.x, b = d.y;
+  }
+  const float r = 1.0f / m;  // a cell boundary misses by a few ulp: the lists' reach allows 1e-5
+  a *= r;
+  b *= r;
+  const float half = 0.5f * (float)G;
+  const int i = min(max((int)floorf((a + 1.0f) * half), 0), G - 1);
+  const int j = min(max((int)floorf((b + 1.0f) * half), 0), G - 1);
+  return (face * G + i) * G + j;
 }
 
 // The geometry policies of the scene kernel, its fifth template parameter,
@@ -173,6 +206,77 @@ struct SceneGeom {
   __device__ __forceinline__ int light_of(int shape) const { return __ldg(&P->light_of[shape]); }
   __device__ __forceinline__ bool scan() const { return SCAN && P->scan != 0; }
 
+  // The triangle fold's walk: calls fold(e) for each table slot e of the
+  // triangles a ray (o, d) may hit at or before `cap` (before it, `strict`),
+  // every slot with the skip off, until fold returns true. With the skip on:
+  // the leaves of the tree over the blocks whose box, widened by
+  // 64·(R_cap + 1) ulp·D (tri_pads), the ray enters (the lanes of a warp as
+  // one), which holds every hit of a triangle with R <= R_cap
+  // (scan_walk.cuh); then the triangles with R > R_cap, found in the list of
+  // the ray's direction bin: those whose w = N·R_cap / (|e1|·|e2|) has (w·d)²
+  // below d·d (R > R_cap means exactly that), with 2^-7 to spare for the
+  // rounding of w and of the dot products (4u·R_cap relative, R_cap <= 2^13).
+  // A slot folded twice changes nothing, so the fold is the whole fold's, bit
+  // for bit, in the lexicographic (t, index) minimum and in the any-hit flag
+  // alike.
+  template <class C, class F>
+  __device__ __forceinline__ void walk_triangles(V3 o, V3 d, V3 inv_d, const float& cap, bool strict, C& cnt,
+                                                 F fold) const {
+    const FluxGeom& g = *P;
+    uint32_t tests = 0u, entered = 0u;  // dead unless counted
+    bool stopped = false;
+    const auto leaf = [&](int b) {
+      for (int k = 0; k < FLUX_TRI_BLOCK; ++k) {
+        if (fold(b * FLUX_TRI_BLOCK + k)) {
+          stopped = true;
+          return true;
+        }
+      }
+      return false;
+    };
+    if (g.tri_skip == 0) {
+      walk_blocks(nullptr, g.n_tri_blocks, false, o, inv_d, RaySlack{}, cap, strict, tests, entered, cnt, NO_LAPS,
+                  leaf);
+    } else {
+      const V3 pad = tri_pads(__ldg(&g.tri_tree[0]), __ldg(&g.tri_tree[1]), o, inv_d, g.tri_rcap);
+      walk_tree_with(
+          g.tri_tree, g.tri_block_leaves, inv_d,
+          [&](float4 lo, float4 hi) { return tri_box_enter(lo, hi, o, inv_d, pad, cap, strict); }, tests, entered,
+          cnt, CLK_TRI_BOX, leaf);
+      if (!stopped) {
+        long long t = cnt.now();
+        const float lim2 = (1.0f + 0x1p-7f) * dot3(d, d);
+        const int bin = tri_bin(d, g.tri_bin_grid);
+        const int k0 = __ldg(&g.tri_bin_off[bin]), k1 = __ldg(&g.tri_bin_off[bin + 1]);
+        uint32_t cands = 0u, exc = 0u;  // dead unless counted
+        // The list 32 entries at a time: first which of them pass (loads that
+        // do not wait on each other), then those folded, so that the lanes
+        // of a warp, each with a list of its own, fold theirs together.
+        for (int k = k0; k < k1 && !stopped; k += 32) {
+          const int n = min(32, k1 - k);
+          uint32_t found = 0u;
+          for (int j = 0; j < n; ++j) {
+            const float4 c = __ldg(&g.tri_cand[k + j]);
+            const float wd = c.x * d.x + c.y * d.y + c.z * d.z;
+            found |= (wd * wd < lim2 ? 1u : 0u) << j;
+          }
+          cands += (uint32_t)n;
+          while (found != 0u && !stopped) {
+            const int j = __ffs((int)found) - 1;
+            found &= found - 1u;
+            exc += 1u;
+            stopped = fold(__float_as_int(__ldg(&g.tri_cand[k + j]).w));
+          }
+        }
+        cnt.add(CNT_TRI_CANDS, cands);
+        cnt.add(CNT_TRI_EXC, exc);
+        cnt.lap(CLK_TRI_EXC, t);
+      }
+    }
+    cnt.add(CNT_TRI_TESTS, tests);
+    cnt.add(CNT_TRI_ENTERED, entered);
+  }
+
   // The counting launch's triangle *_NEEDED counters of a fold that had to
   // see every triangle up to `cap` (a nearest fold's final hit; a shadow
   // ray's t_max, strictly, if it came through): the blocks whose box the
@@ -183,9 +287,10 @@ struct SceneGeom {
     const V3 inv_d = V3{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
     RaySlack rs = ray_slack(d);
     rs.drift = 0.0f;
+    const float4* box = g.tri_tree + 2 * (g.tri_block_leaves - 1);  // the leaves: each block's box
     uint32_t blocks = 0u, tris = 0u;
     for (int b = 0; b < g.n_tri_blocks; ++b) {
-      if (!box_enter(__ldg(&g.tri_box[2 * b]), __ldg(&g.tri_box[2 * b + 1]), o, inv_d, cap, shadow, rs)) continue;
+      if (!box_enter(__ldg(&box[2 * b]), __ldg(&box[2 * b + 1]), o, inv_d, cap, shadow, rs)) continue;
       blocks += 1u;
       for (int k = 0; k < FLUX_TRI_BLOCK; ++k) tris += __ldg(&g.tri_idx[b * FLUX_TRI_BLOCK + k]) >= 0 ? 1u : 0u;
     }
@@ -269,8 +374,6 @@ struct SceneGeom {
     const float inf = __int_as_float(0x7f800000);
     const V3 inv_d = V3{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
     const RaySlack rs = ray_slack(d);
-    RaySlack rs_tri = rs;  // Möller–Trumbore makes no assumption about |d|
-    rs_tri.drift = 0.0f;
     // Spheres: (t, original index, slot); slot is the table entry in scan
     // mode and the index itself in sweep mode.
     float best_t = inf;
@@ -299,25 +402,18 @@ struct SceneGeom {
     int tr_slot = -1;
     if (g.n_tri_blocks > 0) {
       const int prev_tri = prev - g.tri_base;
-      uint32_t tests = 0u, entered = 0u;  // dead unless counted
-      walk_blocks(g.tri_box, g.tri_sbox, g.n_tri_blocks, g.tri_skip != 0, o, inv_d, rs_tri, tr_t, false,
-                  tests, entered, cnt, NO_LAPS, [&](int b) {
-                    for (int k = 0; k < FLUX_TRI_BLOCK; ++k) {
-                      const int e = b * FLUX_TRI_BLOCK + k;
-                      const int idx = __ldg(&g.tri_idx[e]);
-                      float t;
-                      if (triangle_t(o, d, xyz(__ldg(&g.tri_v0[e])), xyz(__ldg(&g.tri_e1[e])),
-                                     xyz(__ldg(&g.tri_e2[e])), &t) &&
-                          (t < tr_t || (t == tr_t && idx < tr_i)) && prev_tri != idx) {
-                        tr_t = t;
-                        tr_i = idx;
-                        tr_slot = e;
-                      }
-                    }
-                    return false;
-                  });
-      cnt.add(CNT_TRI_TESTS, tests);
-      cnt.add(CNT_TRI_ENTERED, entered);
+      walk_triangles(o, d, inv_d, tr_t, false, cnt, [&](int e) {
+        const int idx = __ldg(&g.tri_idx[e]);
+        float t;
+        if (idx >= 0 &&
+            triangle_t(o, d, xyz(__ldg(&g.tri_v0[e])), xyz(__ldg(&g.tri_e1[e])), xyz(__ldg(&g.tri_e2[e])), &t) &&
+            (t < tr_t || (t == tr_t && idx < tr_i)) && prev_tri != idx) {
+          tr_t = t;
+          tr_i = idx;
+          tr_slot = e;
+        }
+        return false;
+      });
     }
     return take(o, d, best_t, best_i, slot, pl, tr_t, tr_i, tr_slot, h, cnt);
   }
@@ -332,8 +428,6 @@ struct SceneGeom {
     cnt.add(CNT_SHADOW_FOLDS, 1u);
     const V3 inv_d = V3{1.0f / d.x, 1.0f / d.y, 1.0f / d.z};
     const RaySlack rs = ray_slack(d);
-    RaySlack rs_tri = rs;
-    rs_tri.drift = 0.0f;
     if (scan()) {
       if (scan_occluded(sphere_table(g), o, d, a, inv_a, inv_d, rs, t_max, exclude, origin, cnt)) {
         cnt.add(CNT_SH_SPH_NEEDED, 1u);
@@ -351,25 +445,18 @@ struct SceneGeom {
     }
     if (g.n_tri_blocks > 0) {
       bool occ = false;
-      uint32_t tests = 0u, tri_entered = 0u;  // dead unless counted
-      walk_blocks(g.tri_box, g.tri_sbox, g.n_tri_blocks, g.tri_skip != 0, o, inv_d, rs_tri, t_max, true,
-                  tests, tri_entered, cnt, NO_LAPS, [&](int b) {
-                    for (int k = 0; k < FLUX_TRI_BLOCK; ++k) {
-                      const int e = b * FLUX_TRI_BLOCK + k;
-                      const int sidx = g.tri_base + __ldg(&g.tri_idx[e]);
-                      if (sidx == exclude || sidx == origin) continue;
-                      float t;
-                      if (triangle_t(o, d, xyz(__ldg(&g.tri_v0[e])), xyz(__ldg(&g.tri_e1[e])),
-                                     xyz(__ldg(&g.tri_e2[e])), &t) &&
-                          t < t_max) {
-                        occ = true;
-                        return true;
-                      }
-                    }
-                    return false;
-                  });
-      cnt.add(CNT_TRI_TESTS, tests);
-      cnt.add(CNT_TRI_ENTERED, tri_entered);
+      walk_triangles(o, d, inv_d, t_max, true, cnt, [&](int e) {
+        const int idx = __ldg(&g.tri_idx[e]);
+        const int sidx = g.tri_base + idx;
+        if (idx < 0 || sidx == exclude || sidx == origin) return false;
+        float t;
+        if (triangle_t(o, d, xyz(__ldg(&g.tri_v0[e])), xyz(__ldg(&g.tri_e1[e])), xyz(__ldg(&g.tri_e2[e])), &t) &&
+            t < t_max) {
+          occ = true;
+          return true;
+        }
+        return false;
+      });
       if (occ) {
         count_tri_stop(cnt);
         return true;

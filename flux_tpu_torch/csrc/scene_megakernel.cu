@@ -12,8 +12,10 @@
 //   K6 triangle fold       Möller–Trumbore over Morton-sorted blocks of 16
 //                          triangles, the winner seeded with the sphere/plane
 //                          winner's t, a strictly-nearer merge, the any-hit
-//                          form, a two-level skip over groups of 8 blocks
-//                          (:611-762);
+//                          form, the skip over a binary tree of the blocks'
+//                          boxes walked front to back by a warp as one, and
+//                          the triangles a ray runs nearly parallel to folded
+//                          apart (:611-762);
 //   K7 triangle lights     the uniform-area light sample, its density, the
 //                          MIS reverse density and the shrunk shadow ray
 //                          (:302-318; ops/nee.py, ops/shade.py), in
@@ -56,9 +58,15 @@
 //     test as computed, not as meant, the box is widened by that test's own
 //     error (box_enter): near a tangent the quadratic takes hits a hair
 //     outside the sphere, and further out once |d| has drifted from 1.
-//   * The triangle skip is engaged by the table's block count (the
-//     wrapper's TRI_SKIP_ENGAGE): in a closed room every ray enters every
-//     box, and with 3 blocks the tests only cost.
+//   * For triangles the widening is Möller–Trumbore's own error, which grows
+//     as the ray turns into a triangle's plane (scan_walk.cuh, tri_pads):
+//     the boxes hold every hit of a triangle the ray meets at more than a
+//     hair's angle, and the few triangles it runs nearly parallel to, whose
+//     hits no box holds (a ray in a triangle's plane can be accepted anywhere
+//     along its line), come from a list by the ray's direction and are folded
+//     whatever the boxes say. The triangle skip is engaged by the table's
+//     block count (the wrapper's TRI_SKIP_ENGAGE): in a closed room every ray
+//     enters every box, and with 3 blocks the tests only cost.
 //   * Where the whole triangle table is folded and fits in shared memory
 //     (FLUX_TRI_STAGED slots), a light sample's shadow ray has no fold of its
 //     own: it is carried to the next bounce and folded beside that bounce's
@@ -165,7 +173,7 @@ size_t flux_scene_geom_bytes(void) { return sizeof(FluxGeom); }
 
 int flux_scene_n_counts(void) { return FLUX_SCENE_N_COUNTS; }
 
-int flux_scene_block_sizes(void) { return FLUX_SCAN_BLOCK * 10000 + FLUX_TRI_BLOCK * 100 + FLUX_SUPER; }
+int flux_scene_block_sizes(void) { return FLUX_SCAN_BLOCK * 10000 + FLUX_TRI_BLOCK * 100; }
 
 int flux_scene_scan_leaf(void) { return FLUX_SCAN_LEAF; }
 

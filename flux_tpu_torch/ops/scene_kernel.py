@@ -27,9 +27,10 @@ that.
 What this module does on the host, once per layout and light set: it packs
 the :class:`ScanLayout` (with the binary tree of boxes over runs of
 ``SCAN_LEAF`` of its spheres, see :func:`sphere_tree`), more than
-``MAX_PLANES`` planes, the :class:`TriLayout` (with the boxes of every group
-of 8 blocks) and the light set into one float32 device buffer each (rows of
-4 floats), and keeps the buffer beside the host arrays it was packed from.
+``MAX_PLANES`` planes, the :class:`TriLayout` (with the tree of boxes over its
+blocks and the lists of triangles by ray direction, see :func:`tri_bins`) and
+the light set into one float32 device buffer each (rows of 4 floats), and
+keeps the buffer beside the host arrays it was packed from.
 """
 
 from __future__ import annotations
@@ -60,20 +61,38 @@ __all__ = [
     "pack_plane_table",
     "pack_tri_table",
     "pack_light_table",
-    "union_boxes",
     "sphere_tree",
+    "tri_bins",
     "COUNT_NAMES",
     "N_COUNTS",
-    "SUPER",
     "SCAN_LEAF",
+    "TRI_RCAP",
+    "BIN_GRIDS",
+    "BIN_TESTS",
     "TRI_SKIP_ENGAGE",
     "tri_skip_engaged",
     "flops_lower_bound",
     "table_bytes",
 ]
 
-SUPER = 8  # triangle blocks under one second-level box
 SCAN_LEAF = 16  # spheres under one leaf of the sphere tree (FLUX_SCAN_LEAF)
+# Triangles whose R = |d|·|e1|·|e2| / |d·(e1 × e2)| for a ray exceeds this are
+# folded apart from the tree, by the ray's direction; the tree's boxes are
+# widened to hold the hits of the others (csrc/scan_walk.cuh; at most 2^13,
+# for the kernel's rounding slack). 256 against 1024 on an NVIDIA H100 80GB
+# HBM3 at 700 W: a quarter of the widening, four times the triangles folded
+# apart, the triangle fold's rows 4-6% faster (PERF.md, the design steps).
+TRI_RCAP = 256
+# The direction lists' grids, finest first, and the (bin, triangle) pairs
+# that building them may test: the first grid that keeps within it is taken
+# (tri_bins). A finer grid shortens the lists a ray reads, and costs the host
+# time in proportion to those pairs. On an NVIDIA H100 80GB HBM3 at 700 W and
+# its host (chip_smoke.py phase 14, icosphere(5), K6's launch): 13-20 ns a
+# pair; grids 16 / 32 / 64 / 128 pack in 0.31 / 0.89 / 3.7 / 13.4 s and run
+# 11.36 / 9.87 / 8.76 / 7.59 ms. The budget keeps a table's pack near a
+# second: mesh1280 takes 128, icosphere(4) 64, icosphere(5) 32.
+BIN_GRIDS = (128, 64, 32, 16, 8)
+BIN_TESTS = 1 << 26
 # The kernel's counters per pixel, in order (csrc/scan_walk.cuh): the
 # tracer's (work, then the cycles of each phase of a bounce), then the
 # geometry's: sphere blocks of nearest folds (needed, walk units entered:
@@ -85,7 +104,9 @@ SCAN_LEAF = 16  # spheres under one leaf of the sphere tree (FLUX_SCAN_LEAF)
 # triangle blocks needed by shadow rays (part of tri_blocks_needed), the
 # triangles those blocks hold without their padding (all rays, shadow rays;
 # one for a shadow ray a triangle stopped) and the shadow folds a sphere of
-# the scan stopped.
+# the scan stopped; then the triangles the direction lists offered and those
+# of them folded, and the cycles of the triangle tree's box tests, its
+# leaves' folds and the lists.
 COUNT_NAMES = TRACER_COUNT_NAMES + (
     "sphere_blocks_needed", "sphere_blocks_entered", "sphere_box_tests",
     "tri_blocks_needed", "tri_blocks_entered", "tri_box_tests", "shadow_folds",
@@ -94,30 +115,31 @@ COUNT_NAMES = TRACER_COUNT_NAMES + (
     "clk_sphere_boxes", "clk_sphere_folds", "clk_shadow_sphere_boxes", "clk_shadow_sphere_folds",
     "clk_needed_walk", "clk_shadow_needed_walk",
     "shadow_tri_blocks_needed", "tris_needed", "shadow_tris_needed", "shadow_sphere_stops",
+    "tri_candidates", "tri_exceptions", "clk_tri_boxes", "clk_tri_folds", "clk_tri_exceptions",
 )
 N_COUNTS = len(COUNT_NAMES)
 # The triangle skip is engaged from this many triangle blocks on; below it
 # the launch folds every block (flux_tpu's rule, pallas_kernel.py:1177-1178).
 # The threshold was measured on an NVIDIA H100 80GB HBM3 at 700 W
-# (chip_smoke.py phase 14, ms with the skip on / off): a mesh of 2 blocks at
-# 16 spp 0.376 / 0.539, 5 blocks 0.568 / 0.831, 20 blocks 0.814 / 2.199, 80
-# blocks 1.334 / 8.317; the Cornell box's 3 blocks at 1024 spp with NEE
-# 42.22 / 36.95 (in a closed room every ray enters every box). No block
-# count separates the open 2-block mesh from the room: 4 gives up 0.16 ms on
-# the first to save 5.3 ms on the second.
+# (chip_smoke.py phase 14, ms with the skip on / off, the tree over the
+# blocks): a mesh of 2 blocks at 16 spp 0.376 / 0.380, 5 blocks 0.577 /
+# 0.762, 8 blocks 0.646 / 1.106, 20 blocks 1.019 / 2.646, 80 blocks 1.931 /
+# 8.980; the Cornell box's 3 blocks at 1024 spp with NEE 51.24 / 25.22 (in a
+# closed room every ray enters every box, and the skip's shadow ray has a
+# fold of its own). The skip wins from 5 blocks and ties at 2.
 TRI_SKIP_ENGAGE = 4
 _SOURCE = "scene_megakernel"
 _SKIPS = {"scan_skip", "tri_skip", "two_level"}  # pack_geom's measurement switches
 
 _POINTERS = (
     "sph_geo", "sph_idx", "sph_mat", "sph_alb", "sph_box", "sph_tree", "pl_point", "pl_normal", "pl_alb",
-    "tri_v0", "tri_e1", "tri_e2", "tri_idx", "tri_n", "tri_alb", "tri_box", "tri_sbox",
+    "tri_v0", "tri_e1", "tri_e2", "tri_idx", "tri_n", "tri_alb", "tri_tree", "tri_bin_off", "tri_cand",
     "l_center", "l_emit", "l_pick", "l_cdf", "l_shape", "l_is_tri", "l_v0", "l_e1", "l_e2", "l_n",
     "light_of",
 )
 _INTS = (
-    "n_sph_blocks", "sph_block_leaves", "n_planes", "n_tri_blocks", "scan", "ns_base", "plane_row0", "tri_base",
-    "sph_walk", "tri_skip", "n_lights", "lights_have_tris",
+    "n_sph_blocks", "sph_block_leaves", "n_planes", "n_tri_blocks", "tri_block_leaves", "tri_bin_grid", "scan",
+    "ns_base", "plane_row0", "tri_base", "sph_walk", "tri_skip", "n_lights", "lights_have_tris",
 )
 
 
@@ -125,7 +147,8 @@ class FluxGeom(ctypes.Structure):
     """The kernel's launch parameters (``struct FluxGeom``): device pointers
     into the packed tables, then the launch-uniform choices."""
 
-    _fields_ = [(k, ctypes.c_void_p) for k in _POINTERS] + [(k, ctypes.c_int) for k in _INTS]
+    _fields_ = ([(k, ctypes.c_void_p) for k in _POINTERS] + [(k, ctypes.c_int) for k in _INTS]
+                + [("tri_rcap", ctypes.c_float)])
 
 
 def config_name(accel: str, tris: bool, with_stats: bool, nee: bool, physical: bool,
@@ -154,18 +177,6 @@ def _rows4(*cols) -> np.ndarray:
         out[:, c:c + col.shape[1]] = col
         c += col.shape[1]
     return out
-
-
-def union_boxes(bmin: np.ndarray, bmax: np.ndarray, group: int = SUPER):
-    """Boxes over each ``group`` consecutive blocks: the union of their
-    boxes, ignoring NaN (empty) ones; NaN where the whole group is empty.
-    ``bmin`` and ``bmax`` are (n_blocks, k): the reduction is per column."""
-    nb, k = bmin.shape
-    ng = -(-nb // group)
-    pad = np.full((ng * group - nb, k), np.nan, np.float32)
-    lo = np.fmin.reduce(np.concatenate([bmin, pad]).reshape(ng, group, k), axis=1)
-    hi = np.fmax.reduce(np.concatenate([bmax, pad]).reshape(ng, group, k), axis=1)
-    return lo.astype(np.float32), hi.astype(np.float32)
 
 
 def _boxes(bmin: np.ndarray, bmax: np.ndarray, inv_rmin=None) -> np.ndarray:
@@ -275,11 +286,97 @@ def pack_plane_table(scene: SceneTensors, sweep: bool):
     })
 
 
+def _cube_cells(grid: int):
+    """Each direction bin's center (unit, float64) and the largest chord from
+    it to a direction of its cell, for the ``3·grid²`` cells of the cube
+    faces (csrc/scene_geom.cuh::tri_bin): face ``f``'s cell ``(i, j)`` holds
+    the directions whose largest component is the ``f``-th, with the other
+    two over it in ``[-1 + 2i/grid, -1 + 2(i + 1)/grid]`` and the same for
+    ``j``, up to sign. A cell is convex on the sphere, so its farthest
+    direction from the center is a corner."""
+    edge = np.linspace(-1.0, 1.0, grid + 1)
+    mid = (edge[:-1] + edge[1:]) / 2
+
+    def unit(f, a, b):
+        one = np.ones_like(a)
+        v = np.stack([(one, a, b), (a, one, b), (a, b, one)][f], axis=-1)
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    centers, chords = [], []
+    for f in range(3):
+        a, b = np.meshgrid(mid, mid, indexing="ij")
+        c = unit(f, a, b)
+        chord = np.zeros(a.shape)
+        for da in (0, 1):
+            for db in (0, 1):
+                ca, cb = np.meshgrid(edge[da:grid + da], edge[db:grid + db], indexing="ij")
+                chord = np.maximum(chord, np.linalg.norm(unit(f, ca, cb) - c, axis=-1))
+        centers.append(c.reshape(-1, 3))
+        chords.append(chord.reshape(-1))
+    return np.concatenate(centers), np.concatenate(chords)
+
+
+def tri_bins(layout: TriLayout, grid: Optional[int] = None):
+    """The lists of triangles a ray may run nearly parallel to, by its
+    direction's bin: ``(offsets, candidates, grid, rcap)``, ``offsets``
+    int32 of ``3·grid² + 1`` (bin ``k``'s candidates are ``[offsets[k],
+    offsets[k + 1])``), ``candidates`` (n, 4) float32 rows: ``w = N · rcap /
+    (|e1|·|e2|)`` (``N = e1 × e2``; 0 for a degenerate triangle) and the
+    table slot as int32 bits, ``rcap`` the TRI_RCAP they were built for. A
+    triangle's R for a ray is above ``rcap`` exactly when ``|w·d| < |d|``;
+    bin ``k`` lists every triangle for which that can hold for a direction
+    of the cell, ``|w·c| <= 1.01 + |w|·(chord + 1e-5)`` at its center ``c``,
+    with room for rounding in the kernel's test and in its choice of the bin
+    (an ulp or two of the quotients it bins by). Every (bin, triangle) pair
+    is tested, so ``grid`` by default is the first of ``BIN_GRIDS`` at which
+    the table's triangles times the bins stay within ``BIN_TESTS`` (the last
+    one otherwise). Built once per layout and kept in its host dict; a
+    layout whose lists are built at one grid takes no other."""
+    h = layout.host
+    if "tri_bins" in h:
+        if grid is not None and grid != h["tri_bins"][2]:
+            raise ValueError(f"the layout's lists are built at grid {h['tri_bins'][2]}, not {grid}")
+        return h["tri_bins"]
+    n = h["idx"].size
+    e1, e2 = (h[k].reshape(n, 3).astype(np.float64) for k in ("e1", "e2"))
+    slots = np.flatnonzero(h["idx"].reshape(n) >= 0)
+    nrm = np.cross(e1[slots], e2[slots])
+    scale = np.linalg.norm(e1[slots], axis=1) * np.linalg.norm(e2[slots], axis=1)
+    rcap = TRI_RCAP
+    if not 1 <= rcap <= 1 << 13:
+        raise ValueError(f"TRI_RCAP {rcap} outside [1, 2^13]")
+    with np.errstate(invalid="ignore", divide="ignore"):
+        w = np.where(scale[:, None] > 0, nrm * (rcap / scale)[:, None], 0.0)
+    w = np.nan_to_num(w).astype(np.float32)  # the kernel tests the rounded rows
+    wlen = np.linalg.norm(w.astype(np.float64), axis=1).astype(np.float32)
+    if grid is None:
+        grid = next((g for g in BIN_GRIDS if len(slots) * 3 * g * g <= BIN_TESTS), BIN_GRIDS[-1])
+    centers, chords = _cube_cells(grid)
+    # In float32: the dot's rounding (3 ulp of |w|) is well inside |w|·1e-5.
+    centers_t, reach = centers.T.astype(np.float32), (chords + 1e-5).astype(np.float32)
+    pairs, step = [], max(16, (1 << 22) // len(centers))
+    for k0 in range(0, len(slots), step):
+        k1 = min(k0 + step, len(slots))
+        near = np.abs(w[k0:k1] @ centers_t) <= np.float32(1.01) + wlen[k0:k1, None] * reach
+        tri, cell = np.nonzero(near)
+        pairs.append(np.stack([cell, tri + k0], axis=1))
+    pairs = np.concatenate(pairs) if pairs else np.zeros((0, 2), np.int64)
+    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    offsets = np.zeros(len(centers) + 1, np.int32)
+    np.cumsum(np.bincount(pairs[:, 0], minlength=len(centers)), out=offsets[1:])
+    tri = pairs[:, 1]
+    h["tri_bins"] = (offsets, _rows4(w[tri], slots[tri].astype(np.int32)), grid, rcap)
+    return h["tri_bins"]
+
+
 def pack_tri_table(layout: TriLayout):
-    """The kernel's triangle table from a TriLayout's host arrays."""
+    """The kernel's triangle table from a TriLayout's host arrays: the
+    triangles by block, the binary tree of boxes whose leaves are the
+    blocks' boxes (built as :func:`sphere_tree` builds the spheres'; lo.w 0),
+    and the lists of :func:`tri_bins`."""
     h = layout.host
     n = h["idx"].size
-    slo, shi = union_boxes(h["bmin"], h["bmax"])
+    offsets, cand, _, _ = tri_bins(layout)
     return _concat({
         "tri_v0": _rows4(h["v0"].reshape(n, 3)),
         "tri_e1": _rows4(h["e1"].reshape(n, 3)),
@@ -287,8 +384,9 @@ def pack_tri_table(layout: TriLayout):
         "tri_idx": h["idx"].reshape(n),
         "tri_n": _rows4(h["n"].reshape(n, 3), h["exp"].reshape(n)),
         "tri_alb": _rows4(h["alb"].reshape(n, 3), h["kind"].reshape(n)),
-        "tri_box": _boxes(h["bmin"], h["bmax"]),
-        "tri_sbox": _boxes(slo, shi),
+        "tri_tree": sphere_tree(_boxes(h["bmin"], h["bmax"])),
+        "tri_bin_off": offsets,
+        "tri_cand": cand,
     })
 
 
@@ -354,10 +452,9 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def declare(lib: ctypes.CDLL, n_counts: int = N_COUNTS) -> ctypes.CDLL:
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares the C signatures of a loaded scene kernel library and checks
-    that its FluxScene and FluxGeom match this module's, and that it has
-    ``n_counts`` counters (the first of ``COUNT_NAMES``)."""
+    that its FluxScene, FluxGeom and counters match this module's."""
     for fn in ("flux_scene_scene_bytes", "flux_scene_geom_bytes"):
         getattr(lib, fn).restype = ctypes.c_size_t
         getattr(lib, fn).argtypes = []
@@ -396,8 +493,8 @@ def declare(lib: ctypes.CDLL, n_counts: int = N_COUNTS) -> ctypes.CDLL:
     if (
         lib.flux_scene_scene_bytes() != ctypes.sizeof(FluxScene)
         or lib.flux_scene_geom_bytes() != ctypes.sizeof(FluxGeom)
-        or lib.flux_scene_n_counts() != n_counts
-        or lib.flux_scene_block_sizes() != SCAN_BLOCK * 10000 + TRI_SCAN_BLOCK * 100 + SUPER
+        or lib.flux_scene_n_counts() != N_COUNTS
+        or lib.flux_scene_block_sizes() != SCAN_BLOCK * 10000 + TRI_SCAN_BLOCK * 100
     ):
         raise RuntimeError("FluxScene/FluxGeom layout differs between Python and CUDA")
     return lib
@@ -416,11 +513,11 @@ def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTen
 
     The switches, read by the kernel only (the result is bit-equal either
     way): ``scan_skip`` turns the AABB skip over sphere blocks off (every
-    block is folded), ``two_level`` the levels of boxes above the blocks
-    (the sphere tree; the triangles' groups of 8 blocks): without them each
-    block's box is tested; ``tri_skip`` forces the skip over triangle blocks
-    on or off, and by default (None) engages it by
-    :func:`tri_skip_engaged`."""
+    block is folded), ``two_level`` the levels of boxes above the sphere
+    blocks (the sphere tree): without them each block's box is tested;
+    ``tri_skip`` forces the skip over triangle blocks (their tree, and the
+    triangles folded apart by the ray's direction) on or off, and by default
+    (None) engages it by :func:`tri_skip_engaged`."""
     geom = FluxGeom()
     keep = []
 
@@ -443,9 +540,11 @@ def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTen
     if nt:
         if isect.tri_layout is None:
             raise ValueError("a scene with triangles needs the Intersector's TriLayout")
-        point(*_device_table(isect.tri_layout.host, dev, lambda: pack_tri_table(isect.tri_layout)),
-              skip=() if two_level else ("tri_sbox",))
+        point(*_device_table(isect.tri_layout.host, dev, lambda: pack_tri_table(isect.tri_layout)))
         geom.n_tri_blocks = isect.tri_layout.n_blocks
+        geom.tri_block_leaves = 1 << max(isect.tri_layout.n_blocks - 1, 0).bit_length()
+        _, _, geom.tri_bin_grid, rcap = tri_bins(isect.tri_layout)
+        geom.tri_rcap = rcap
     ns, npl = scene.num_spheres, scene.num_planes
     if lights is not None:
         n_shapes = ns + npl + nt

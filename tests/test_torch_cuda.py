@@ -19,6 +19,7 @@ import torch
 
 from flux_tpu_torch.camera import camera_tensors
 from flux_tpu_torch.genscene import plane_ring, sphere_field
+from flux_tpu_torch.meshgen import icosphere, mesh_scene
 from flux_tpu_torch.ops import scene_kernel
 from flux_tpu_torch.ops.intersect import Intersector, scan_layout, tri_layout
 from flux_tpu_torch.ops.nee import extract_lights
@@ -197,6 +198,8 @@ SCENE_CONFIGS = [
 def _scene_setup(card, name, accel, nee):
     if name == "demo5planes":
         sd = plane_ring(load_scene(os.path.join(SCENES, "demo5.yml")), 19)
+    elif name in ("mesh1280", "mesh20480"):
+        sd = mesh_scene(*icosphere(3 if name == "mesh1280" else 5), name=name)
     else:
         sd = load_scene(os.path.join(SCENES, f"{name}.yml"))
     sc = compile_scene(sd, card)
@@ -289,8 +292,9 @@ def test_scene_kernel_carried_shadow_counts(card, physical):
     """The Cornell box's NEE arm: with the whole triangle table folded the
     shadow ray has no fold of its own (it rides beside the next bounce's
     ray, every triangle block entered once a bounce), with the triangle skip
-    forced on it has. (That the carried launch's path counters equal the
-    parent commit's whole-fold launch is held by chip_smoke.py phase 15.)"""
+    forced on it has; and the paths are the same either way, counter for
+    counter, on the band where a skip that was not exact took a hit of a
+    triangle's plane (rows 256-257, 8 spp, seed 5)."""
     sc, cam, isect, lights, w, h = _scene_setup(card, "demo5", "sweep", True)
     kw = dict(isect=isect, img_w=w, img_h=h, n_rows=2, n_samples=8, root=2, max_depth=5, lights=lights,
               physical=physical)
@@ -300,6 +304,8 @@ def test_scene_kernel_carried_shadow_counts(card, physical):
         render_block_scene(sc, cam, h // 2, 0, 5, work_counts=counts, tri_skip=skip, **kw)
         got[skip] = dict(zip(scene_kernel.COUNT_NAMES, counts.to(torch.int64).sum(dim=1).tolist()))
     carried, folded = got[False], got[True]
+    paths = ("bounces", "light_samples", "shadow_rays", "reverse_densities", "glossy_lobes")
+    assert {k: carried[k] for k in paths} == {k: folded[k] for k in paths}
     assert carried["shadow_folds"] == 0 and folded["shadow_folds"] > 0
     assert carried["tri_blocks_entered"] == carried["bounces"] * isect.tri_layout.n_blocks
     assert 0 < carried["shadow_rays"] < carried["light_samples"] < carried["bounces"]
@@ -309,6 +315,46 @@ def test_scene_kernel_carried_shadow_counts(card, physical):
         assert 0 < c["shadow_tri_blocks_needed"] < c["tri_blocks_needed"]
         assert 0 < c["shadow_tris_needed"] < c["tris_needed"] <= 36 * (c["bounces"] + c["light_samples"])
         assert c["tris_needed"] < scene_kernel.TRI_SCAN_BLOCK * c["tri_blocks_needed"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, physical, stats", [("mesh1280", False, False), ("mesh_ico", True, False),
+                                                   ("mesh_ico", True, True)], ids=["K6", "K6+K4", "K6+K4+K2"])
+def test_triangle_skip_bitwise_equal_to_the_whole_fold(card, name, physical, stats):
+    """The triangle fold's rows with the skip on (the tree over the blocks,
+    and the triangles a ray runs nearly parallel to folded apart), off (every
+    block folded) and by default: the same bits, on an 8-row full-width
+    band; and the sums against the plain version at the gates of
+    test_scene_kernel_configs_match_plain."""
+    sc, cam, isect, _, w, h = _scene_setup(card, name, "sweep", False)
+    kw = dict(isect=isect, img_w=w, img_h=h, n_rows=8, n_samples=16, root=4, max_depth=5, physical=physical,
+              with_stats=stats)
+    assert scene_kernel.tri_skip_engaged(isect.tri_layout.n_blocks)
+    k = render_block_scene(sc, cam, h // 2 - 4, 0, 7, **kw)
+    for skip in (True, False):
+        other = render_block_scene(sc, cam, h // 2 - 4, 0, 7, tri_skip=skip, **kw)
+        assert torch.equal(k.view(torch.int32), other.view(torch.int32)), skip
+    p = render_block(sc, cam, h // 2 - 4, 0, 7, **kw)
+    assert torch.isclose(k, p, rtol=1e-4, atol=1e-5).float().mean() >= 0.99
+    fd = (finalize(k[..., :3], root=4) - finalize(p[..., :3], root=4)).abs()
+    assert fd.mean() < 1e-3 and (fd > 5e-3).float().mean() < 0.01
+
+
+@pytest.mark.cuda
+def test_triangle_skip_past_the_lists_budget(card):
+    """K6 on icosphere(5) (20,480 triangles, 1,280 blocks), whose direction
+    lists take a grid coarser than the finest (past BIN_TESTS): the skip
+    on, off and by default give the same bits on an 8-row full-width band
+    (the plain version would take minutes on this table; K6's rows above
+    hold it)."""
+    sc, cam, isect, _, w, h = _scene_setup(card, "mesh20480", "sweep", False)
+    assert scene_kernel.tri_bins(isect.tri_layout)[2] < scene_kernel.BIN_GRIDS[0]
+    kw = dict(isect=isect, img_w=w, img_h=h, n_rows=8, n_samples=16, root=4, max_depth=5)
+    k = render_block_scene(sc, cam, h // 2 - 4, 0, 7, **kw)
+    assert torch.isfinite(k).all()
+    for skip in (True, False):
+        other = render_block_scene(sc, cam, h // 2 - 4, 0, 7, tri_skip=skip, **kw)
+        assert torch.equal(k.view(torch.int32), other.view(torch.int32)), skip
 
 
 def _scan_scene(card, name, nee):

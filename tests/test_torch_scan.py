@@ -407,9 +407,6 @@ def test_packed_sphere_table_and_scan_scene_record():
         assert (tree[node, 0, :3] <= L.host["bmin"][kids]).all() and (tree[node, 1, :3] >= L.host["bmax"][kids]).all()
         assert tree[node, 0, 3] == box[kids, 0, 3].max()
     assert tree[0, 0, 3] == box[:, 0, 3].max()
-    lo, hi = scene_kernel.union_boxes(np.float32([[np.nan] * 3, [1, 2, 3]]), np.float32([[np.nan] * 3, [4, 5, 6]]), 2)
-    assert lo.tolist() == [[1, 2, 3]] and hi.tolist() == [[4, 5, 6]]
-    assert np.isnan(scene_kernel.union_boxes(np.full((3, 3), np.nan, np.float32), np.full((3, 3), np.nan, np.float32))[0]).all()
     plane_row = r.scene.num_spheres
     for sweep in (False, True):
         pbuf, poff = scene_kernel.pack_plane_table(r.scene, sweep)

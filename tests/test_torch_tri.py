@@ -38,8 +38,12 @@ from flux_tpu_torch.render import Renderer, render_block
 from flux_tpu_torch.scene import (
     SCENE_FIELDS,
     TRI_FIELDS,
+    CameraData,
+    CameraSettings,
     MaterialData,
     MaterialKind,
+    OutputSettings,
+    PlaneData,
     SceneData,
     SphereData,
     TriangleData,
@@ -434,10 +438,38 @@ def test_scan_with_triangles_keeps_the_original_shape_numbering():
     assert scene_kernel.config_name("scan", True, False, True, True, tri_lights=True) == "scan+tri+nee+trilight+physical"
 
 
+def _assert_lists_complete(L, offsets, cand, grid, rcap):
+    """Each of 40 random bins of a layout's direction lists lists every
+    triangle whose R can pass ``rcap`` for a direction of its cell (checked
+    at its corners and at random directions of the cell, either sign,
+    float64)."""
+    n = L.host["idx"].size
+    assert offsets.size == 3 * grid * grid + 1
+    assert offsets[0] == 0 and offsets[-1] == len(cand) and (np.diff(offsets) >= 0).all()
+    e1, e2 = (L.host[k].reshape(n, 3).astype(np.float64) for k in ("e1", "e2"))
+    rng = np.random.default_rng(3)
+    for f, i, j in zip(rng.integers(0, 3, 40), rng.integers(0, grid, 40), rng.integers(0, grid, 40)):
+        k = (f * grid + i) * grid + j
+        listed = set(cand[offsets[k]:offsets[k + 1], 3].view(np.int32).tolist())
+        # Directions of the cell (the corners included), either sign.
+        ab = -1 + 2 * np.stack([i + rng.random(64), j + rng.random(64)], 1) / grid
+        ab[:4] = -1 + 2 * np.array([[i, j], [i + 1, j], [i, j + 1], [i + 1, j + 1]]) / grid
+        one = np.ones(64)
+        d = np.stack([(one, ab[:, 0], ab[:, 1]), (ab[:, 0], one, ab[:, 1]), (ab[:, 0], ab[:, 1], one)][f], axis=1)
+        d *= rng.choice([-1.0, 1.0], (64, 1))
+        dd = np.abs(d @ np.cross(e1, e2).T) * rcap
+        scale = np.linalg.norm(d, axis=1)[:, None] * np.linalg.norm(e1, axis=1) * np.linalg.norm(e2, axis=1)
+        over = (dd < scale) & (L.host["idx"].reshape(n) >= 0)  # R > rcap
+        assert set(np.flatnonzero(over.any(axis=0)).tolist()) <= listed
+
+
 def test_packed_triangle_table():
     """The triangle table the CUDA kernel reads: rows of four floats with
     the exponent beside the normal and the kind's bits beside the albedo,
-    the blocks' boxes, and group boxes that hold them."""
+    the tree over the blocks whose leaves are the blocks' boxes, and the
+    lists of triangles by ray direction: each bin lists every triangle whose
+    R can pass TRI_RCAP for a direction of its cell (checked at its center
+    and at random directions of the cell, float64)."""
     r = Renderer(load_scene(_path("mesh_ico")), 1, 2, device="cpu")
     L = r.isect.tri_layout
     buf, off = scene_kernel.pack_tri_table(L)
@@ -449,11 +481,60 @@ def test_packed_triangle_table():
     alb = buf[off["tri_alb"]: off["tri_alb"] + 4 * n].reshape(n, 4)
     np.testing.assert_array_equal(alb[:, 3].view(np.int32), L.host["kind"].reshape(n))
     np.testing.assert_array_equal(buf[off["tri_idx"]: off["tri_idx"] + n].view(np.int32), L.host["idx"].reshape(n))
-    box = buf[off["tri_box"]: off["tri_box"] + 8 * L.n_blocks].reshape(L.n_blocks, 2, 4)
-    np.testing.assert_array_equal(box[:, 1, :3], L.host["bmax"])
-    assert (box[:, 0, 3] == 0).all()  # no radius term for triangle boxes
-    sbox = buf[off["tri_sbox"]: off["tri_sbox"] + 8 * 3].reshape(3, 2, 4)
-    assert (sbox[2, 0, :3] <= L.host["bmin"][16:]).all() and (sbox[2, 1, :3] >= L.host["bmax"][16:]).all()
+    tree = buf[off["tri_tree"]: off["tri_tree"] + 8 * 63].reshape(63, 2, 4)  # 32 leaves
+    np.testing.assert_array_equal(tree[31:51, 0, :3], L.host["bmin"])
+    np.testing.assert_array_equal(tree[31:51, 1, :3], L.host["bmax"])
+    assert (tree[:, 0, 3] == 0).all() and np.isnan(tree[51:, :, :3]).all()  # no radius term for triangle boxes
+    kids = tree[1:].reshape(31, 2, 2, 4)
+    np.testing.assert_array_equal(np.fmin(kids[:, 0, 0, :3], kids[:, 1, 0, :3]), tree[:31, 0, :3])
+    offsets, cand, grid, rcap = scene_kernel.tri_bins(L)
+    np.testing.assert_array_equal(buf[off["tri_bin_off"]: off["tri_bin_off"] + offsets.size].view(np.int32), offsets)
+    _assert_lists_complete(L, offsets, cand, grid, rcap)
     geom, keep = scene_kernel.pack_geom(r.scene, r.isect, None, "cpu", tri_skip=False)
     assert (geom.scan, geom.n_sph_blocks, geom.n_tri_blocks, geom.tri_skip, geom.plane_row0) == (0, 0, 20, 0, 2)
     assert scene_kernel.table_bytes(r.isect, None, 323) == buf.nbytes
+
+
+def test_direction_lists_past_their_budget_take_a_coarser_grid():
+    """icosphere(4) (5,120 triangles): at the finest grid, building its
+    lists would test more (bin, triangle) pairs than BIN_TESTS, so tri_bins
+    takes the next coarser grid, within the budget, and its lists there are
+    complete; a built layout takes no other grid. (mesh1280, within it,
+    keeps the finest grid.)"""
+    sc = compile_scene(meshgen.mesh_scene(*meshgen.icosphere(4)), "cpu")
+    L = ti.tri_layout(sc)
+    offsets, cand, grid, rcap = scene_kernel.tri_bins(L)
+    finest, coarser = scene_kernel.BIN_GRIDS[:2]
+    assert 5120 * 3 * coarser ** 2 <= scene_kernel.BIN_TESTS < 5120 * 3 * finest ** 2
+    assert grid == coarser
+    _assert_lists_complete(L, offsets, cand, grid, rcap)
+    with pytest.raises(ValueError):
+        scene_kernel.tri_bins(L, grid=finest)
+    assert 1280 * 3 * finest ** 2 <= scene_kernel.BIN_TESTS
+
+
+def test_icosphere_converges_to_analytic_sphere():
+    """The port's counterpart of tests/test_trimesh.py's: icosphere(3) (1280
+    triangles, chord error ~0.25%) renders like the analytic sphere it
+    approximates, same material, light, ground and seed, through the plain
+    version on the CPU at the same tiny size (48x36, root 4, depth 3): mean
+    |diff| under 0.02. It holds the whole triangle path (intersection,
+    normals, shading) against the sphere path the goldens pin."""
+    red = MaterialData(kind=MaterialKind.MATTE, color=(1.0, 0.0, 0.0))
+    light = SphereData(center=(0, 6, -2), radius=2.0,
+                       material=MaterialData(kind=MaterialKind.EMISSIVE, color=(1, 1, 1), param=3.0))
+    ground = PlaneData(point=(0, -1.2, 0), normal=(0, 1, 0),
+                       material=MaterialData(kind=MaterialKind.MATTE, color=(0.6, 0.6, 0.6)))
+    mesh = meshgen.mesh_triangles(*meshgen.icosphere(3), red, scale=1.0, offset=(0.0, 0.0, 0.0))
+    sphere = SphereData(center=(0, 0, 0), radius=1.0, material=red)
+
+    def render(shapes):
+        sd = SceneData(scene_name="t", output_settings=OutputSettings(image_width=48, image_height=36, pixel_size=1.0),
+                       background=(0.0, 0.0, 0.0), shapes=tuple(shapes),
+                       camera_settings=CameraSettings(eye=(0, 0, -5), look_at=(0, 0, 0), up=(0, 1, 0)),
+                       camera_data=CameraData(zoom_factor=1.0, view_plane_distance=500.0, focal_distance=5.0,
+                                              lens_radius=0.0))
+        return Renderer(sd, 4, 3, seed=1, device="cpu").render_rows(0, 36)
+
+    diff = np.abs(render([light, ground] + mesh) - render([light, ground, sphere])).mean()
+    assert diff < 0.02, f"icosphere vs analytic sphere mean |diff| {diff:.4f}"

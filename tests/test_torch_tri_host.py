@@ -53,9 +53,10 @@ SCENES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "scenes"
 TRI_SHADOW_SHRINK = np.float32(1.0 - 1e-4)
 
 # argv[1]: the packed scene record, argv[2]: the packed tables (float32).
-# stdin: first "n_tri_blocks n_planes ns_base tri_base plane_row0" and the
-# tables' offsets in floats (tri_v0 tri_e1 tri_e2 tri_idx tri_n tri_alb
-# tri_box tri_sbox pl_point pl_normal pl_alb; -1: none); then one ray a
+# stdin: first "n_tri_blocks tri_block_leaves tri_bin_grid n_planes ns_base
+# tri_base plane_row0" and the tables' offsets in floats (tri_v0 tri_e1
+# tri_e2 tri_idx tri_n tri_alb tri_tree tri_bin_off tri_cand pl_point
+# pl_normal pl_alb; -1: none) and the tables' R_cap; then one ray a
 # line, "mode prev exclude" and the bits of o, d, ds and t_max; mode 0 no
 # shadow ray, 1 the far end t_max as given, 2 the shadow direction's
 # nearest hit, 3 the next float beyond it. Prints per ray, for nearest then
@@ -88,15 +89,21 @@ int main(int argc, char** argv) {
   if (fread(buf.data(), sizeof(float), buf.size(), f) != buf.size()) return 2;
   fclose(f);
   FluxGeom g = {};
-  int off[11];
-  if (scanf("%d %d %d %d %d", &g.n_tri_blocks, &g.n_planes, &g.ns_base, &g.tri_base, &g.plane_row0) != 5) return 2;
-  for (int k = 0; k < 11; ++k) {
+  int off[12];
+  if (scanf("%d %d %d %d %d %d %d", &g.n_tri_blocks, &g.tri_block_leaves, &g.tri_bin_grid, &g.n_planes, &g.ns_base,
+            &g.tri_base, &g.plane_row0) != 7) {
+    return 2;
+  }
+  for (int k = 0; k < 12; ++k) {
     if (scanf("%d", &off[k]) != 1) return 2;
   }
+  int rcap;
+  if (scanf("%d", &rcap) != 1) return 2;
+  g.tri_rcap = (float)rcap;
   auto at = [&](int k) { return off[k] < 0 ? nullptr : (const float4*)(buf.data() + off[k]); };
   g.tri_v0 = at(0), g.tri_e1 = at(1), g.tri_e2 = at(2), g.tri_idx = (const int*)at(3);
-  g.tri_n = at(4), g.tri_alb = at(5), g.tri_box = at(6), g.tri_sbox = at(7);
-  g.pl_point = at(8), g.pl_normal = at(9), g.pl_alb = at(10);
+  g.tri_n = at(4), g.tri_alb = at(5), g.tri_tree = at(6), g.tri_bin_off = (const int*)at(7), g.tri_cand = at(8);
+  g.pl_point = at(9), g.pl_normal = at(10), g.pl_alb = at(11);
   if (g.n_tri_blocks * FLUX_TRI_BLOCK > FLUX_TRI_STAGED) return 3;  // past the stage: not a GEO_SWEEP launch
   const SceneGeom<GEO_SWEEP> geo{&g, shape_rows()};
   geo.stage(0, 1);
@@ -142,7 +149,7 @@ int main(int argc, char** argv) {
   return 0;
 }
 """
-_OFFSETS = ("tri_v0", "tri_e1", "tri_e2", "tri_idx", "tri_n", "tri_alb", "tri_box", "tri_sbox",
+_OFFSETS = ("tri_v0", "tri_e1", "tri_e2", "tri_idx", "tri_n", "tri_alb", "tri_tree", "tri_bin_off", "tri_cand",
             "pl_point", "pl_normal", "pl_alb")
 
 
@@ -272,7 +279,9 @@ def test_fused_fold_matches_nearest_then_any_hit(program, name):
     (tmp / f"{tag}.rec").write_bytes(bytes(rec))
     (tmp / f"{tag}.tab").write_bytes(np.concatenate(bufs).astype(np.float32).tobytes())
     ns, npl = sc.num_spheres, sc.num_planes
-    head = [layout.n_blocks, npl, ns, ns + npl, ns] + [offsets.get(k, -1) for k in _OFFSETS]
+    leaves = 1 << max(layout.n_blocks - 1, 0).bit_length()
+    _, _, grid, rcap = scene_kernel.tri_bins(layout)
+    head = [layout.n_blocks, leaves, grid, npl, ns, ns + npl, ns] + [offsets.get(k, -1) for k in _OFFSETS] + [rcap]
     lines = _rays(sc, lights, np.random.default_rng(11), 1500)
     out = subprocess.run([str(exe), str(tmp / f"{tag}.rec"), str(tmp / f"{tag}.tab")],
                          input=" ".join(map(str, head)) + "\n" + "\n".join(lines) + "\n", check=True,
