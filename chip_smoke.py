@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero before the result line:
    ``scene_megakernel.cu`` (every instantiation of both templates) with
    nvcc, and phase 15's variants of the second (and with ``--parent`` the
    other checkout's two sources), all at once, and prints the build seconds
-   and the compiler's register report for each;
+   and the compiler's register report for each; and the native host code
+   (``csrc/fluxnative.cpp``, g++), which must load;
 3. kernel vs plain: demo2 at its full 800 width, an 8-row band, root 4,
    depth 5, seed 42, through the kernel and through its plain PyTorch
    version on the card; two kernel launches must be bitwise equal, and
@@ -23,10 +24,11 @@ Phases, in order; any failure exits non-zero before the result line:
    ×10, as tests/test_golden.py renders them), held against the JAX
    package's committed goldens at that test's gate;
 5. the main path: ``python -m flux_tpu_torch.cli scenes/demo2.yml -r 128
-   -d 5`` (800x600 at 16384 spp) through the CLI's ``main``; the kernel's
-   launch count must rise, the PPM must be whole, and the frame must match
-   the JAX package's render of the same frame and seed
-   (artifacts/demo2_16384spp.png);
+   -d 5`` (800x600 at 16384 spp) through the CLI's ``main`` (the job path:
+   the manager and a local worker); no job error, no JobFailed event, no
+   retry round, and exactly one K1 launch for each of the 12 units, all
+   local; the PPM must be whole, and the frame must match the JAX
+   package's render of the same frame and seed (artifacts/demo2_16384spp.png);
 6. measurement at the main path's shapes (one 50-row band at 16384 spp):
    the kernel's time (CUDA events around 5 launches back to back, per
    launch, median of 3), its bound, and the plain version's time; the two
@@ -143,7 +145,25 @@ Phases, in order; any failure exits non-zero before the result line:
    turns (parent, new, new, parent), bitwise; a row whose bits differ must
    be one where the new launch equals the fold over every triangle block
    (the skip off) of both packages: the parent's triangle skip was not
-   exact.
+   exact;
+17. the job path (``cli.run`` → ``RenderManager`` → workers), each run with
+   the launch counts set to 0 just before and read just after, and its PPM
+   bytes held equal to a band loop over ``Renderer.render_rows`` with the
+   same bands, encoded by ``image.ppm_bytes``:
+   a. demo2 at 800x600, root 128, depth 5, ``-R 50`` through a local worker
+      (K1), with both wall times;
+   b. the same job through a port node (``python -m flux_tpu_torch.node``,
+      a subprocess on the card): ``-L -n``, then ``-n`` beside the local
+      worker, with the units each worker rendered;
+   c. demo3 ``--nee --physical`` (K4 + K3) and demo5 ``--nee`` (K7 on the
+      scene kernel, a last unit of 12 rows) at root 8, demo5 through the
+      node as well (its triangles go over the wire);
+   d. a small job with ``--profile-dir``: the trace must be written; prints
+      the kernel names it records;
+   e. fails on a JobFailed event, a job error, a retry round, a native
+      library that did not load, or a node that does not exit 0 when
+      stopped; prints whether ``msgpack`` is installed (the wire does not
+      use it).
 
 Every phase prints its wall seconds. It ends with a ``{"kernels": [...]}``
 line (one entry per instantiation and configuration) and then the result
@@ -157,11 +177,15 @@ import concurrent.futures
 import contextlib
 import ctypes
 import hashlib
+import importlib.util
 import json
 import os
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace
 
@@ -170,9 +194,9 @@ import torch
 
 from flux_tpu_torch.camera import camera_tensors
 from flux_tpu_torch.checkpoint import ProgressiveRenderer, load_checkpoint
-from flux_tpu_torch import genscene, meshgen
-from flux_tpu_torch.cli import run as cli_run
-from flux_tpu_torch.image import read_ppm
+from flux_tpu_torch import genscene, meshgen, native, wire
+from flux_tpu_torch.cli import DEFAULT_ROWS_PER_UNIT, run as cli_run
+from flux_tpu_torch.image import Image, ppm_bytes, read_ppm
 from flux_tpu_torch.ops import build, scene_kernel
 from flux_tpu_torch.ops.intersect import SCAN_BLOCK, Intersector, scan_layout, tri_layout
 from flux_tpu_torch.ops.nee import extract_lights
@@ -376,8 +400,15 @@ def phase_main_path(out_dir: str, card: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = render_block_sweep.launches.total()
-    check(launches > 0, "the main path launched no sweep megakernel")
-    check(dict(render_block_sweep.launches) == {"sweep": launches}, "the main path left K1")
+    # The manager must not hide a kernel fault behind a retry round: one
+    # launch of K1 for each of the frame's units, each rendered once, locally.
+    n_units = -(-600 // DEFAULT_ROWS_PER_UNIT)
+    check(ran["error"] is None, f"the main path's job failed: {ran['error']}")
+    check(not ran["worker_failures"], f"the main path's JobFailed events: {ran['worker_failures']}")
+    check(ran["retry_rounds"] == 0, f"the main path took {ran['retry_rounds']} retry rounds")
+    check(ran["units_by_worker"] == {"local": n_units}, f"the main path's units {ran['units_by_worker']}")
+    check(dict(render_block_sweep.launches) == {"sweep": n_units},
+          f"the main path launched {dict(render_block_sweep.launches)}, not {n_units} of K1")
     path = os.path.join(out_dir, "demo2.ppm")
     check(ran["out"] == path, f"the CLI wrote {ran['out']}, not {path}")
     with open(path, "rb") as f:
@@ -1662,6 +1693,178 @@ def whole_fold(pkg, r, shape) -> torch.Tensor:
             shape["n_rows"], r.width, -1)
 
 
+# ---- phase 17: the job path ---------------------------------------------------
+
+
+def band_loop_ppm(dev, argv: list) -> tuple:
+    """The PPM bytes of ``argv``'s scene, root, depth, bands (``-R``) and
+    estimator rendered by a band loop over ``Renderer.render_rows``, the
+    loop's seconds and the frame."""
+    opt = dict(zip(argv[1::2], argv[2::2]))
+    sd = load_scene(argv[0])
+    r = Renderer(sd, int(opt["-r"]), int(opt["-d"]), seed=int(opt["--seed"]), device=dev,
+                 nee="--nee" in argv, physical="--physical" in argv)
+    img, rows = Image(r.width, r.height), int(opt["-R"])
+    t0 = time.perf_counter()
+    for row0 in range(0, r.height, rows):
+        img.set_rows(row0, r.render_rows(row0, min(rows, r.height - row0)))
+    seconds = time.perf_counter() - t0
+    return ppm_bytes(img.pixels), seconds, img.pixels
+
+
+def job_path(label: str, argv: list, out_dir: str, want: bytes, config: str) -> dict:
+    """One job through cli.run, its launch counts set to 0 just before and
+    read just after: no JobFailed, no job error, no retry round, every unit
+    rendered once, one launch of ``config`` here for each unit the local
+    worker rendered (none with -L), and the PPM bytes equal to ``want``."""
+    opt = dict(zip(argv[1::2], argv[2::2]))
+    n_units = -(-load_scene(argv[0]).output_settings.image_height // int(opt["-R"]))
+    ran, n, secs = run_path(label, lambda: cli_run([*argv, "--output-dir", out_dir]))
+    check(ran["error"] is None, f"{label}: the job failed: {ran['error']}")
+    check(not ran["worker_failures"], f"{label}: JobFailed events {ran['worker_failures']}")
+    check(ran["retry_rounds"] == 0, f"{label}: {ran['retry_rounds']} retry rounds, {ran['retried_units']} units")
+    check(sum(ran["units_by_worker"].values()) == n_units, f"{label}: units {ran['units_by_worker']}, not {n_units}")
+    local = ran["units_by_worker"].get("local", 0)
+    check(n == ({config: local} if local else {}), f"{label}: launches {n}, {local} local units of {config}")
+    with open(ran["out"], "rb") as f:
+        check(f.read() == want, f"{label}: the PPM differs from the band loop's bytes")
+    res = {"seconds": secs, "job_seconds": ran["band_seconds"], "launches": n,
+           "units_by_worker": ran["units_by_worker"], "ppm_equal": True}
+    return {**res, "trace": ran.get("trace")}
+
+
+class NodeProcess:
+    """``python -m flux_tpu_torch.node`` on a free loopback port, started
+    from this checkout; its output is kept. ``stop`` ends it with SIGTERM
+    and returns its exit code (0 for a clean stop)."""
+
+    def __init__(self):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            self.port = s.getsockname()[1]
+        self.lines = []
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "flux_tpu_torch.node", "-H", "127.0.0.1", "-p", str(self.port)],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        self._reader = threading.Thread(target=lambda: self.lines.extend(iter(self.proc.stdout.readline, "")),
+                                        daemon=True)
+        self._reader.start()
+        deadline = time.monotonic() + 120
+        while not any("listening" in ln for ln in self.lines):
+            check(self.proc.poll() is None, f"the node exited {self.proc.returncode}: {''.join(self.lines)}")
+            check(time.monotonic() < deadline, f"the node did not listen in 120 s: {''.join(self.lines)}")
+            time.sleep(0.05)
+        self.endpoint = f"127.0.0.1:{self.port}"
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        self._reader.join(timeout=10)
+        return self.proc.returncode
+
+
+def wire_unit_ms(rows: np.ndarray) -> dict:
+    """Host milliseconds of one unit's rows over the wire, median of 5: the
+    node's encode (deflate) and pack, the master's unpack and decode, and
+    the frame's bytes raw and deflated."""
+    def median_ms(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times)), out
+
+    enc_ms, msg = median_ms(lambda: wire.encode_rows(0, rows))
+    pack_ms, data = median_ms(lambda: wire.packb(msg))
+    unpack_ms, back = median_ms(lambda: wire.unpackb(data))
+    dec_ms, got = median_ms(lambda: wire.decode_rows(back))
+    check(np.array_equal(got, rows), "the wire changed a unit's rows")
+    return {"shape": list(rows.shape), "raw_bytes": rows.nbytes, "frame_bytes": len(data),
+            "deflated": msg.get("enc") == "zlib", "encode_ms": enc_ms, "pack_ms": pack_ms,
+            "unpack_ms": unpack_ms, "decode_ms": dec_ms}
+
+
+def trace_kernels(path: str) -> dict:
+    """Device kernels a Chrome trace records: name -> (count, total ms)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    out = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            n, ms = out.get(ev["name"], (0, 0.0))
+            out[ev["name"]] = (n + 1, ms + ev.get("dur", 0) / 1e3)
+    return out
+
+
+def phase_job_path(dev, out_dir: str, card: str) -> dict:
+    check(native.available(), f"the native host code did not load: {native.load_error}")
+    log(f"native host code: {native.library_path()}; msgpack installed: "
+        f"{importlib.util.find_spec('msgpack') is not None} (the wire does not use it)")
+    scene = lambda name: os.path.join(HERE, "scenes", f"{name}.yml")
+    results = {}
+
+    def note(label, res):
+        results[label] = res
+        log(f"job path, {label} on {card}:", json.dumps(res))
+
+    # a. The published workload through the manager and a local worker.
+    demo2 = [scene("demo2"), "-r", "128", "-d", "5", "-R", "50", "--seed", "0"]
+    want, loop_s, frame = band_loop_ppm(dev, demo2)
+    res = job_path("demo2 local", demo2, os.path.join(out_dir, "a"), want, "sweep")
+    res.update(band_loop_seconds=loop_s, job_path_over_band_loop_s=res["job_seconds"] - loop_s,
+               cli_over_band_loop_s=res["seconds"] - loop_s)
+    note("a. demo2 800x600 root 128 depth 5 -R 50, local worker", res)
+    note("a. one demo2 unit over the wire (host)", wire_unit_ms(frame[:50]))
+    node = NodeProcess()
+    try:
+        # b. The same job through a port node, then the node and the local worker.
+        res = job_path("demo2 node", demo2 + ["-L", "-n", node.endpoint], os.path.join(out_dir, "b1"), want, "sweep")
+        res["band_loop_seconds"] = loop_s
+        note("b. demo2 through a port node (-L -n)", res)
+        res = job_path("demo2 node again", demo2 + ["-L", "-n", node.endpoint], os.path.join(out_dir, "b1r"), want,
+                       "sweep")
+        note("b. demo2 through the port node again", {**res, "band_loop_seconds": loop_s})
+        res = job_path("demo2 node + local", demo2 + ["-n", node.endpoint], os.path.join(out_dir, "b2"), want,
+                       "sweep")
+        note("b. demo2 through a port node and the local worker (-n)", res)
+        # c. Other kernels through the job path: K4 + K3 and K7 (demo5's last unit is 12 rows).
+        demo3 = [scene("demo3"), "-r", "8", "-d", "5", "-R", "50", "--seed", "0", "--nee", "--physical"]
+        want3, loop3, _ = band_loop_ppm(dev, demo3)
+        res = job_path("demo3 mis", demo3, os.path.join(out_dir, "c3"), want3, "sweep+nee+physical")
+        note("c. demo3 --nee --physical root 8, local worker", {**res, "band_loop_seconds": loop3})
+        demo5 = [scene("demo5"), "-r", "8", "-d", "5", "-R", "50", "--seed", "0", "--nee"]
+        want5, loop5, _ = band_loop_ppm(dev, demo5)
+        res = job_path("demo5 nee", demo5, os.path.join(out_dir, "c5"), want5, "sweep+tri+nee+trilight")
+        note("c. demo5 --nee root 8, local worker", {**res, "band_loop_seconds": loop5})
+        res = job_path("demo5 nee node", demo5 + ["-L", "-n", node.endpoint], os.path.join(out_dir, "c5n"), want5,
+                       "sweep+tri+nee+trilight")
+        note("c. demo5 --nee root 8, through the port node", res)
+    finally:
+        rc = node.stop()
+        log(f"node output (exit code {rc}):\n" + "".join(node.lines).rstrip())
+    check(rc == 0, f"the node exited {rc}")
+    # d. The profiler.
+    small = [scene("demo2"), "-r", "4", "-d", "5", "-R", "50", "--seed", "0"]
+    want_s, _, _ = band_loop_ppm(dev, small)
+    res = job_path("demo2 profiled", small + ["--profile-dir", os.path.join(out_dir, "prof")],
+                   os.path.join(out_dir, "d"), want_s, "sweep")
+    check(res["trace"] is not None and os.path.isfile(res["trace"]), "--profile-dir wrote no trace")
+    kernels = trace_kernels(res["trace"])
+    res["trace_kernels"] = {k: {"count": n, "ms": ms} for k, (n, ms) in kernels.items()}
+    res["trace_bytes"] = os.path.getsize(res["trace"])
+    note("d. demo2 root 4 with --profile-dir", res)
+    if not kernels:
+        log("d. the trace records no device kernel (CUPTI gave no kernel activity)")
+    return results
+
+
 def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
                  source: str = "flux_tpu_torch/csrc/sweep_megakernel.cu") -> dict:
     return {
@@ -1700,11 +1903,13 @@ def main(argv=None) -> int:
     # source of the parent's package, all started together
     t0 = time.perf_counter()
     parent = load_parent(args.parent) if args.parent else None
-    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
         parent_built = None if parent is None else pool.submit(parent.ops.build.build_many,
                                                                list(parent.ops.build.LIBRARIES))
         variants = start_variant_builds(parent)
+        native_built = pool.submit(native.get_lib)
         build.build_many(list(build.LIBRARIES))
+        check(native_built.result() is not None, f"the native host code did not build: {native.load_error}")
         if parent_built is not None:
             parent_built.result()
             for name, info in parent.ops.build.BUILD_LOG.items():
@@ -1773,6 +1978,9 @@ def main(argv=None) -> int:
     if parent is not None:
         with phase_timer("16 against the parent's build"):
             parent_rows(dev, parent)
+    with phase_timer("17 the job path"), tempfile.TemporaryDirectory() as tmp:
+        job = phase_job_path(dev, tmp, card)
+    kernels[0]["job_path_launches"] = job["a. demo2 800x600 root 128 depth 5 -R 50, local worker"]["launches"].get("sweep", 0)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -13,7 +13,11 @@ both share one path tracer (``csrc/flux_trace.cuh``) and have one template
 instantiation for each estimator configuration (reference transport, the
 stats channel, NEE, physical transport and MIS). Progressive, adaptive and
 checkpointed renders are in ``checkpoint.py``; ``genscene.py`` and
-``meshgen.py`` generate sphere fields and meshes.
+``meshgen.py`` generate sphere fields and meshes. A CLI render is a job
+(``job.py``) that a ``RenderManager`` (``manager.py``, with the scheduler
+round of ``sched.py``) hands out in row bands to a local worker and to
+render nodes (``workers.py``, ``node.py``, ``wire.py``), whose frames are
+``flux_tpu``'s; the PPM encoder is native host code (``csrc/fluxnative.cpp``).
 
 Entry points (``Renderer``, ``cli``) run on the CUDA card unless the caller
 asks for the CPU (``device="cpu"``), where the plain PyTorch version of the

@@ -15,3 +15,6 @@ SALT_LENS = 0x4C454E53
 SALT_BOUNCE = 0x424F554E
 SALT_NEE = 0x4E454531
 SALT_NEEPICK = 0x4E454532
+
+# Default TCP port of a render node (fluxcore/src/constants.rs:6).
+DEFAULT_PORT = 2000

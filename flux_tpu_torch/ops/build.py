@@ -24,10 +24,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "LIBRARIES", "build", "build_many", "load", "BUILD_LOG"]
+__all__ = ["NVCC_FLAGS", "LIBRARIES", "build", "build_many", "load", "BUILD_LOG", "LAUNCH_LOCK"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,6 +46,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #          "ptxas": the compiler's register and memory report}
 BUILD_LOG: dict = {}
 _LOADED: dict = {}
+
+# Held by a wrapper around its library call and its launch count. A call
+# writes the library's __constant__ scene record on the stream and then
+# launches the kernel; two threads' calls (two renderers of one process,
+# say a local worker and a node's) must not interleave between the two.
+LAUNCH_LOCK = threading.Lock()
 
 
 def _build_dir() -> Path:

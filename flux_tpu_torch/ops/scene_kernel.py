@@ -644,23 +644,24 @@ def render_block_scene(
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
     plan = plan_launch(functools.partial(lib.flux_scene_blocks_per_sm, ctypes.byref(geom)), dev, n_pix, n_samples,
                        with_stats, lights is not None, physical, work_counts is not None, max_depth)
-    with torch.cuda.device(dev):
+    name = config_name(isect.mode, scene.num_triangles > 0, with_stats, lights is not None, physical,
+                       tri_lights=lights is not None and lights.has_tris)
+    with build.LAUNCH_LOCK, torch.cuda.device(dev):
         err = lib.flux_scene_render(
             out.data_ptr(), counts_ptr, ctypes.byref(packed), ctypes.byref(geom), int(with_stats),
             int(lights is not None), int(physical), n_pix, img_w, img_h, int(row0), int(row_stride),
             int(s0) & MASK, int(n_samples), limit, int(seed) & MASK, int(root), int(max_depth),
             plan.split, torch.cuda.current_stream(dev).cuda_stream,
         )
+        if err == 0:
+            render_block_scene.launches[name] += 1
+            render_block_scene.last_plan = plan
     del keep  # the tables stay cached beside their layouts
     if err != 0:
         raise RuntimeError(
             f"scene megakernel launch failed: CUDA error {err} "
             f"({lib.flux_scene_error_string(err).decode()})"
         )
-    name = config_name(isect.mode, scene.num_triangles > 0, with_stats, lights is not None, physical,
-                       tri_lights=lights is not None and lights.has_tris)
-    render_block_scene.launches[name] += 1
-    render_block_scene.last_plan = plan
     return out.t().reshape(n_rows, img_w, n_ch)
 
 

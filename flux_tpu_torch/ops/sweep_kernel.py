@@ -400,20 +400,21 @@ def render_block_sweep(
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
     plan = plan_launch(lib.flux_sweep_blocks_per_sm, dev, n_pix, n_samples, with_stats, lights is not None,
                        physical, bounce_counts is not None, max_depth)
-    with torch.cuda.device(dev):
+    with build.LAUNCH_LOCK, torch.cuda.device(dev):
         err = lib.flux_sweep_render(
             out.data_ptr(), counts_ptr, ctypes.byref(packed), packed_lights, int(with_stats),
             int(physical), n_pix, img_w, img_h, int(row0), int(row_stride), int(s0) & MASK,
             int(n_samples), limit, int(seed) & MASK, int(root), int(max_depth),
             plan.split, torch.cuda.current_stream(dev).cuda_stream,
         )
+        if err == 0:
+            render_block_sweep.launches[config_name(with_stats, lights is not None, physical)] += 1
+            render_block_sweep.last_plan = plan
     if err != 0:
         raise RuntimeError(
             f"sweep megakernel launch failed: CUDA error {err} "
             f"({lib.flux_sweep_error_string(err).decode()})"
         )
-    render_block_sweep.launches[config_name(with_stats, lights is not None, physical)] += 1
-    render_block_sweep.last_plan = plan
     return out.t().reshape(n_rows, img_w, n_ch)
 
 

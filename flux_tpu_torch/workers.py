@@ -1,0 +1,307 @@
+"""Execution backends: the local worker and the network worker
+(``flux_tpu/workers.py``; fluxcore/src/workers.rs).
+
+``LocalWorker`` renders on this process's device, the CUDA card or the CPU
+(the rayon-pool replacement, workers.rs:25-88): per job it builds a
+renderer through its factory and pulls work units from the shared queue
+until it is drained. ``NetworkWorker`` proxies the same pull loop to a
+remote render node over TCP (workers.rs:105-243), keeping the reference's
+pipeline depth of 2 — two units are in flight before the first result is
+awaited (workers.rs:161-201) — so that the link and the remote card
+overlap. The node may run either package: the frames are the same
+(``wire.py``).
+"""
+
+from __future__ import annotations
+
+import queue
+import socket
+import threading
+from typing import Callable
+
+from .constants import DEFAULT_PORT
+from .debug import d_println
+from .job import Job
+from .manager import (
+    JobFailed,
+    RowsReady,
+    WorkerHandle,
+    WorkerInfo,
+    WorkUnitResult,
+)
+from . import wire
+from .render import resolve_device
+
+__all__ = ["LocalWorker", "NetworkWorker", "default_renderer_factory"]
+
+
+class _NodeJobError(Exception):
+    """The node reported it cannot render this job; the connection itself is
+    still synchronized (a clean job_error frame), so the worker survives and
+    the lost units go to the manager's retry round."""
+
+
+def default_renderer_factory(job: Job, device=None, accel=None):
+    """The port's single-device :class:`~flux_tpu_torch.render.Renderer`
+    for ``job`` on ``device`` (the CUDA card unless the caller names the
+    CPU), with the job's sample root, depth, seed and estimator. Rendering
+    one job across several cards (``flux_tpu``'s ``MeshRenderer`` branch)
+    is not ported yet."""
+    from .render import Renderer
+
+    return Renderer(
+        job.scene_data,
+        sample_root=job.config.sample_root,
+        max_depth=job.config.max_trace_depth,
+        seed=job.config.seed,
+        device=device,
+        accel=accel,
+        nee=job.config.nee,
+        physical=job.config.physical,
+    )
+
+
+class LocalWorker:
+    """Pulls work units and renders them on the local devices
+    (workers.rs:25-88)."""
+
+    def __init__(self, renderer_factory: Callable[[Job], object] = None, name="local",
+                 device=None):
+        """``device`` is the device the factory renders on, which ``info``
+        reports (the CUDA card unless the CPU is named); the default
+        factory is :func:`default_renderer_factory` on it."""
+        self.device = resolve_device(device)
+        if renderer_factory is None:
+            dev = self.device
+
+            def renderer_factory(job):
+                return default_renderer_factory(job, device=dev)
+
+        self._factory = renderer_factory
+        self._requests: "queue.Queue" = queue.Queue()
+        self._handle = WorkerHandle(self._requests, name=name)
+        self._busy = threading.Event()
+        self.units_done = 0  # units rendered and sent, over every job
+        self._thread = threading.Thread(
+            target=self._run, name=f"LocalWorker[{name}]", daemon=True
+        )
+        self._thread.start()
+
+    def handle(self) -> WorkerHandle:
+        return self._handle
+
+    @property
+    def busy(self) -> bool:
+        """True while a job is being rendered (node-status reporting)."""
+        return self._busy.is_set()
+
+    @property
+    def queued_jobs(self) -> int:
+        """Job requests waiting behind the active one (approximate)."""
+        return self._requests.qsize()
+
+    def info(self) -> WorkerInfo:
+        """One device, the one the factory renders on: ``"cuda"`` or
+        ``"cpu"``."""
+        return WorkerInfo(num_devices=1, platform=self.device.type, description="local")
+
+    def _run(self) -> None:
+        while True:
+            req = self._requests.get()
+            if req is None:
+                d_println("LocalWorker: shutting down")
+                return
+            job, unit_queue, sink, wg = req
+            d_println(f"LocalWorker: got job {job.id}")
+            self._busy.set()
+            try:
+                renderer = self._factory(job)
+                while True:
+                    unit = unit_queue.get()
+                    if unit is None:
+                        break
+                    d_println(f"LocalWorker: rendering {unit}")
+                    rows = renderer.render_rows(unit.row_start, unit.num_rows)
+                    sink.put(RowsReady(WorkUnitResult(work_unit=unit, rows=rows)))
+                    self.units_done += 1
+            except Exception as e:
+                # Keep serving future jobs (the manager retries lost units);
+                # the reference would panic the whole process here
+                # (manager.rs:158-161). The failure goes into the event
+                # stream so remote masters hear about it (node.py forwards
+                # it as a job_error frame). Deliberately do NOT drain the
+                # unit queue: the manager's SchedulerRound is pull-based
+                # (no producer to unblock), so stopping our pulls leaves
+                # every unclaimed unit for the surviving workers instead of
+                # discarding them into the retry round.
+                d_println(f"LocalWorker: job {job.id} failed: {e!r}")
+                try:
+                    sink.put(
+                        JobFailed(
+                            reason=f"{type(e).__name__}: {e}",
+                            worker=self._handle.uid,
+                        )
+                    )
+                except Exception:
+                    pass
+            finally:
+                self._busy.clear()
+                wg.done()
+
+    def stop(self) -> None:
+        self._handle.send_stop()
+        self._thread.join(timeout=30)
+
+
+class NetworkWorker:
+    """TCP proxy worker: ships the job to a remote node and pipelines work
+    units over the link (workers.rs:118-243).
+
+    Connects eagerly and performs the WorkerInfo handshake in the
+    constructor, like the reference (workers.rs:126-143); raises on failure
+    (the CLI exits, flux/src/main.rs:54-57).
+    """
+
+    PIPELINE_DEPTH = 2  # workers.rs:161-175
+
+    def __init__(self, endpoint: str, connect_timeout: float = 10.0, io_timeout: float = None):
+        """``io_timeout``: seconds a send or a wait for a result may take
+        before the link is given up (None: no limit, as a long unit may
+        take long)."""
+        host, _, port = endpoint.partition(":")
+        self.endpoint = endpoint
+        self._sock = socket.create_connection(
+            (host, int(port) if port else DEFAULT_PORT), timeout=connect_timeout
+        )
+        hello = wire.recv_msg(self._sock)  # within connect_timeout
+        if hello.get("type") != "worker_info":
+            raise RuntimeError(f"bad handshake from {endpoint}: {hello!r}")
+        self._sock.settimeout(io_timeout)
+        self._info = WorkerInfo(
+            num_devices=int(hello.get("num_devices", 1)),
+            platform=str(hello.get("platform", "remote")),
+            description=f"node {endpoint}",
+        )
+        self.units_done = 0  # units whose rows came back, over every job
+        self._requests: "queue.Queue" = queue.Queue()
+        self._handle = WorkerHandle(self._requests, name=f"net:{endpoint}")
+        self._thread = threading.Thread(
+            target=self._run, name=f"NetworkWorker[{endpoint}]", daemon=True
+        )
+        self._thread.start()
+
+    def handle(self) -> WorkerHandle:
+        return self._handle
+
+    def info(self) -> WorkerInfo:
+        return self._info
+
+    def _run(self) -> None:
+        while True:
+            req = self._requests.get()
+            if req is None:
+                try:
+                    wire.send_msg(self._sock, {"type": "shutdown"})
+                    self._sock.close()
+                except OSError:
+                    pass
+                return
+            job, unit_queue, sink, wg = req
+            try:
+                self._run_job(job, unit_queue, sink)
+            except _NodeJobError as e:
+                # Clean failure frame: the socket is still synchronized and
+                # the node sends no more rows for this job. Stop pulling —
+                # unclaimed units stay in the round for surviving workers
+                # (SchedulerRound is pull-based; nothing needs draining).
+                d_println(f"NetworkWorker[{self.endpoint}]: node job error: {e}")
+                try:
+                    sink.put(JobFailed(reason=str(e), worker=self._handle.uid))
+                except Exception:
+                    pass
+                try:
+                    wire.send_msg(self._sock, {"type": "done"})
+                except OSError:
+                    self._handle.mark_dead()
+            except Exception as e:
+                d_println(f"NetworkWorker[{self.endpoint}]: job failed: {e!r}")
+                # Any mid-protocol exception leaves the byte stream in an
+                # unknown state (stale frames would corrupt the next job);
+                # always retire the connection. Unclaimed units stay in the
+                # round for surviving workers.
+                self._handle.mark_dead()
+            finally:
+                wg.done()
+                if not self._handle.alive:
+                    return
+
+    def _run_job(self, job: Job, unit_queue, sink) -> None:
+        sock = self._sock
+        wire.send_msg(
+            sock,
+            # caps advertises what result encodings this master can decode
+            # (the node only deflates row blocks when it sees zlib-rows).
+            {"type": "set_job", "job": job.to_dict(), "caps": ["zlib-rows"]},
+        )
+
+        def send_unit(u) -> None:
+            wire.send_msg(
+                sock,
+                {"type": "work_unit", "row_start": u.row_start, "row_end": u.row_end},
+            )
+
+        width = job.scene_data.output_settings.image_width
+
+        def recv_result(expect: dict) -> None:
+            msg = wire.recv_msg(sock)
+            if msg.get("type") == "job_error":
+                raise _NodeJobError(msg.get("reason", "unknown node error"))
+            if msg.get("type") != "rows_ready":
+                raise RuntimeError(f"unexpected node message: {msg.get('type')!r}")
+            u = expect.pop(msg["row_start"])
+            rows = wire.decode_rows(msg)
+            # Validate before the frame reaches the ImageBuilder: a
+            # truncated/mis-shaped block from a buggy node must turn into a
+            # clean job error (→ the manager retries the unit elsewhere),
+            # not a corrupted image. The frame itself decoded fine, so the
+            # byte stream is still synchronized — _NodeJobError keeps the
+            # connection for future jobs.
+            shape = rows.shape
+            if shape[1:] != (width, 3) or shape[0] > u.num_rows:
+                raise _NodeJobError(
+                    f"malformed rows_ready frame for unit {u.row_start}: "
+                    f"shape {shape}, expected ({u.num_rows}, {width}, 3)"
+                )
+            sink.put(RowsReady(WorkUnitResult(work_unit=u, rows=rows)))
+            self.units_done += 1
+
+        in_flight: dict = {}
+        # Prime the pipeline (workers.rs:161-175).
+        for _ in range(self.PIPELINE_DEPTH):
+            u = unit_queue.get()
+            if u is None:
+                # Fewer units than pipeline depth; drain and finish.
+                for _ in range(len(in_flight)):
+                    recv_result(in_flight)
+                wire.send_msg(sock, {"type": "done"})
+                return
+            send_unit(u)
+            in_flight[u.row_start] = u
+
+        # Lock-step: one result in, one unit out (workers.rs:179-201).
+        while True:
+            u = unit_queue.get()
+            if u is None:
+                break
+            recv_result(in_flight)
+            send_unit(u)
+            in_flight[u.row_start] = u
+
+        # Drain outstanding results (workers.rs:203-222).
+        while in_flight:
+            recv_result(in_flight)
+        wire.send_msg(sock, {"type": "done"})
+
+    def stop(self) -> None:
+        self._handle.send_stop()
+        self._thread.join(timeout=30)
