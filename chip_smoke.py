@@ -145,7 +145,8 @@ Phases, in order; any failure exits non-zero before the result line:
    turns (parent, new, new, parent), bitwise; a row whose bits differ must
    be one where the new launch equals the fold over every triangle block
    (the skip off) of both packages: the parent's triangle skip was not
-   exact;
+   exact; then demo2's job path (``cli.run -r 128 -d 5 -R 50``) through
+   each package in turns, its seconds and the PPMs' bytes equal;
 17. the job path (``cli.run`` → ``RenderManager`` → workers), each run with
    the launch counts set to 0 just before and read just after, and its PPM
    bytes held equal to a band loop over ``Renderer.render_rows`` with the
@@ -163,11 +164,43 @@ Phases, in order; any failure exits non-zero before the result line:
    e. fails on a JobFailed event, a job error, a retry round, a native
       library that did not load, or a node that does not exit 0 when
       stopped; prints whether ``msgpack`` is installed (the wire does not
-      use it).
+      use it);
+18. the device mesh (``flux_tpu_torch.parallel``), over the card repeated,
+   each path with the launch counts set to 0 just before and read just
+   after:
+   a. demo2 at 800x600, root 128, depth 5, 12 units of 50 rows through the
+      manager and a LocalWorker whose renderer is a MeshRenderer of shape
+      (rows, spp) (1,1), (2,1), (4,1), (1,2) and (2,2), two rounds, each
+      after a band loop: one K1 launch a slot a unit; rows-only meshes
+      byte-equal to the band loop, spp meshes within float32's
+      reassociation bound of a thread's 512 samples; then ``cli.run -t 1
+      --rows-shards 1``, byte-equal to phase 17's frame; the job's seconds
+      against the band loop's;
+   b. each slot of meshes (2,2), (4,2) and (4,4) as the MeshRenderer
+      launches it (row stride 2 or 4, samples cut by ``s_limit``, the
+      band's split) against the plain version at phase 3's gate: K1, K2,
+      K4 + K3, K7 and K7 + K2 on a 16-row band at root 3, and K1 on the
+      image's last 10 rows over 4 row shards (padding rows past the
+      image); slots past the samples add exact zeros; a band whose own
+      launch plan differs from its shards' stays bitwise on a rows mesh;
+   c. on a (2,1) mesh: demo2's adaptive stop (768 spp, its p99 the one
+      card's), demo3's MIS MSE (the one card's), checkpoints written by the
+      mesh and resumed on one card and the other way round (bitwise), the
+      Cornell box's ``--nee`` job (the band loop's bytes) and a progressive
+      NEE render (the one card's sums);
+   d. two processes of this script (``--mesh-rank``) in a gloo group, both
+      on the card: demo2 over a rows (2,1) global mesh assembled from each
+      one's ``render_rows_local``, and over an spp (1,2) one, bitwise
+      against a's one-process meshes; fails on a rank that does not exit 0;
+   e. a node with ``-t 1`` serves demo2 byte-equal to phase 17's frame;
+      ``sampler_debug`` on the card writes the CPU's eight files;
+   f. each configuration as a (2,1) mesh launches it, timed beside its
+      bound and its plain version, for the kernels line.
 
 Every phase prints its wall seconds. It ends with a ``{"kernels": [...]}``
-line (one entry per instantiation and configuration) and then the result
-line ``{"ok": true, "device": {...}}``.
+line (one entry per instantiation and configuration, and one per
+configuration as a mesh launches it) and then the result line ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -194,9 +227,11 @@ import torch
 
 from flux_tpu_torch.camera import camera_tensors
 from flux_tpu_torch.checkpoint import ProgressiveRenderer, load_checkpoint
-from flux_tpu_torch import genscene, meshgen, native, wire
-from flux_tpu_torch.cli import DEFAULT_ROWS_PER_UNIT, run as cli_run
+from flux_tpu_torch import genscene, meshgen, native, sampler_debug, wire
+from flux_tpu_torch.cli import DEFAULT_ROWS_PER_UNIT, FailureLog, run as cli_run
 from flux_tpu_torch.image import Image, ppm_bytes, read_ppm
+from flux_tpu_torch.job import JobConfiguration
+from flux_tpu_torch.manager import ImageBuilder, MultiSink, RenderManager
 from flux_tpu_torch.ops import build, scene_kernel
 from flux_tpu_torch.ops.intersect import SCAN_BLOCK, Intersector, scan_layout, tri_layout
 from flux_tpu_torch.ops.nee import extract_lights
@@ -207,12 +242,15 @@ from flux_tpu_torch.ops.sweep_kernel import (
     FluxScene,
     config_name,
     flops_lower_bound,
+    launch_plan,
     n_counts,
     pack_scene,
     render_block_sweep,
 )
+from flux_tpu_torch.parallel import MeshRenderer, init_multihost, make_mesh, slot_launch
 from flux_tpu_torch.render import Renderer, finalize, plan_chunks, render_block
 from flux_tpu_torch.scene import compile_scene, load_scene
+from flux_tpu_torch.workers import LocalWorker
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -445,20 +483,23 @@ def plan_of(plan) -> dict:
 
 
 def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physical=False,
-                   stats=False, frame=False) -> dict:
+                   stats=False, frame=False, row_stride=1, split=None) -> dict:
     """One of a path's launches (seed 0, depth 5, full width): the kernel's
     time, its bound from the kernel's own work counters, the plain
     version's time on the same launch, and the two results held against
     each other at phase 3's gate. ``frame`` also times a whole frame of
-    such launches, as the CLI makes them."""
+    such launches, as the CLI makes them. ``row_stride`` and ``split``: a
+    device mesh's launch (phase 18), rows ``row0 + k·row_stride`` at its
+    band's split."""
     sd, scene, cam = scene_on(dev, name)
     lights = extract_lights(sd, dev) if nee else None
     kw = dict(img_w=800, img_h=600, n_rows=n_rows, n_samples=n_samples, root=root, max_depth=5,
-              lights=lights, physical=physical, with_stats=stats)
+              lights=lights, physical=physical, with_stats=stats, row_stride=row_stride)
+    kk = {**kw, "split": split}  # the kernel's arguments (the plain version has no split)
     n_pix = n_rows * 800
     nc = n_counts(nee, physical)
     counts = torch.empty((n_pix,) if nc == 1 else (nc, n_pix), dtype=torch.int32, device=dev)
-    render_block_sweep(scene, cam, row0, 0, 0, bounce_counts=counts, **{**kw, "with_stats": False})
+    render_block_sweep(scene, cam, row0, 0, 0, bounce_counts=counts, **{**kk, "with_stats": False})
     torch.cuda.synchronize()
     work = counts.to(torch.int64).reshape(nc, n_pix).sum(dim=1).tolist() + [0] * (5 - nc)
     samples = n_pix * n_samples
@@ -471,13 +512,13 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
         ctypes.sizeof(FluxLights) if nee else 0)
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    kernel_ms = launch_ms(lambda: render_block_sweep(scene, cam, row0, 0, 0, **kw))
+    kernel_ms = launch_ms(lambda: render_block_sweep(scene, cam, row0, 0, 0, **kk))
     plan = plan_of(render_block_sweep.last_plan)
-    k = render_block_sweep(scene, cam, row0, 0, 0, **kw)
+    k = render_block_sweep(scene, cam, row0, 0, 0, **kk)
     frame_ms = None
     if frame:
         frame_ms = event_ms(
-            lambda: [render_block_sweep(scene, cam, r, 0, 0, **kw) for r in range(0, 600, n_rows)], 1)[0]
+            lambda: [render_block_sweep(scene, cam, r, 0, 0, **kk) for r in range(0, 600, n_rows)], 1)[0]
     # The plain version on the same launch, in chunks of ~4M lanes.
     chunk = max(1, (4 << 20) // n_pix)
     plain_out = []
@@ -491,7 +532,8 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
 
     plain_ms = event_ms(plain, 1)[0]
     p = plain_out[0]
-    what = f"{config_name(stats, nee, physical)}, {name} band {n_rows}x800 at row {row0}, {n_samples} spp"
+    what = (f"{config_name(stats, nee, physical)}, {name} band {n_rows}x800 at row {row0}"
+            + f" stride {row_stride}" * (row_stride > 1) + f", {n_samples} spp")
     cmp = compare(k, p, root, stats)
     log(f"kernel vs plain ({what}, depth 5, seed 0):", json.dumps(cmp))
     check_vs_plain(cmp, what)
@@ -508,7 +550,8 @@ def measure_launch(dev, name, *, row0, n_rows, n_samples, root, nee=False, physi
         "flops_lower_bound": flops,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "shape": f"{name} band {n_rows}x800 px, {n_samples} spp, depth 5",
+        "shape": f"{name} band {n_rows}x800 px" + f" (rows {row0} + k*{row_stride})" * (row_stride > 1)
+                 + f", {n_samples} spp, depth 5",
     }
     log(f"measure ({what}):", json.dumps(res))
     return res
@@ -1105,17 +1148,19 @@ def sweep_vs_scan(dev) -> dict:
 
 
 def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root, plain_rows, nee=False,
-                         physical=False, stats=False, skips=()) -> dict:
+                         physical=False, stats=False, skips=(), row_stride=1, split=None) -> dict:
     """One of a path's launches (seed 0, depth 5, the scene's full width):
     the kernel's time (as in phase 6), its bound from its own work
     counters, and the plain version on the first ``plain_rows`` rows of the band: its
     time there, and those rows of the path's own launch held against it at
-    phase 3's gate. ``skips``: wrapper options to time beside the default."""
+    phase 3's gate. ``skips``: wrapper options to time beside the default.
+    ``row_stride`` and ``split``: a device mesh's launch (phase 18)."""
     sc, cam, isect, lights, w, h = scene_setup(dev, sd, accel, nee)
     kw = dict(isect=isect, img_w=w, img_h=h, n_samples=n_samples, root=root, max_depth=5, lights=lights,
-              physical=physical, with_stats=stats)
+              physical=physical, with_stats=stats, row_stride=row_stride)
+    kk = {**kw, "split": split}  # the kernel's arguments (the plain version has no split)
     n_pix = n_rows * w
-    c = work_counts(sc, cam, row0, 0, n_pix, dev, n_rows=n_rows, **kw)
+    c = work_counts(sc, cam, row0, 0, n_pix, dev, n_rows=n_rows, **kk)
     samples = n_pix * n_samples
     tri_share = 0.0
     if lights is not None and lights.has_tris:
@@ -1130,11 +1175,11 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
     bytes_moved = (4 if stats else 3) * n_pix * 4 + ctypes.sizeof(FluxScene) + scene_kernel.table_bytes(
         isect, lights, n_shapes, sc)
     ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, bytes_moved / PEAK_BYTES_PER_S * 1e3
-    kernel_ms = launch_ms(lambda: render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kw))
+    kernel_ms = launch_ms(lambda: render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kk))
     plan = plan_of(render_block_scene.last_plan)
     timed = {json.dumps(o): float(np.median(event_ms(
-        lambda: render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kw, **o), 3))) for o in skips}
-    k = render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kw)[:plain_rows]
+        lambda: render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kk, **o), 3))) for o in skips}
+    k = render_block_scene(sc, cam, row0, 0, 0, n_rows=n_rows, **kk)[:plain_rows]
     chunk = max(1, (2 << 20) // (plain_rows * w))
     plain_out = []
 
@@ -1161,7 +1206,8 @@ def measure_scene_launch(dev, sd, label, *, accel, row0, n_rows, n_samples, root
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bound_ms_by_blocks": max(by_blocks / PEAK_FP32_FLOPS * 1e3, bytes_ms),
         "bound_ms_separate_folds": max(separate / PEAK_FP32_FLOPS * 1e3, bytes_ms),
-        "shape": f"{sd.scene_name} band {n_rows}x{w} px, {n_samples} spp, depth 5",
+        "shape": f"{sd.scene_name} band {n_rows}x{w} px" + f" (rows {row0} + k*{row_stride})" * (row_stride > 1)
+                 + f", {n_samples} spp, depth 5",
         **entered_share(c, isect),
     }
     log(f"measure ({label}):", json.dumps(res))
@@ -1683,6 +1729,29 @@ def parent_rows(dev, parent) -> dict:
     return res
 
 
+def parent_job_path(parent, out_dir: str) -> dict:
+    """demo2's job path (``cli.run -r 128 -d 5 -R 50``: the manager, a local
+    worker, 12 K1 launches) through the parent's package and this one, in
+    turns (parent, new, new, parent, three times): the seconds from
+    schedule_job to the job's end, and the two PPMs' bytes equal."""
+    argv = [os.path.join(HERE, "scenes", "demo2.yml"), "-r", "128", "-d", "5", "-R", "50", "--seed", "0"]
+    runs = {"parent": submodule(parent, "cli").run, "new": cli_run}
+    times, ppm = {n: [] for n in runs}, {}
+    for _ in range(3):
+        for n in ("parent", "new", "new", "parent"):
+            ran = runs[n]([*argv, "--output-dir", os.path.join(out_dir, n)])
+            check(ran["error"] is None, f"the {n} job path failed: {ran['error']}")
+            times[n].append(ran["band_seconds"])
+            with open(ran["out"], "rb") as f:
+                ppm[n] = f.read()
+    check(ppm["parent"] == ppm["new"], "the job path's PPM differs from the parent's")
+    res = {"job_seconds": times, "median": {n: float(np.median(t)) for n, t in times.items()},
+           "quartile_spread": {n: float(np.subtract(*np.percentile(t, [75, 25]))) for n, t in times.items()},
+           "ppm_equal": True}
+    log("against the parent, demo2's job path (cli.run, 800x600, 16384 spp, -R 50), seconds:", json.dumps(res))
+    return res
+
+
 def whole_fold(pkg, r, shape) -> torch.Tensor:
     """A row's launch through ``pkg``'s scene kernel with the triangle skip
     off (every triangle block folded), as the Renderer ``r`` would make it."""
@@ -1735,16 +1804,17 @@ def job_path(label: str, argv: list, out_dir: str, want: bytes, config: str) -> 
 
 class NodeProcess:
     """``python -m flux_tpu_torch.node`` on a free loopback port, started
-    from this checkout; its output is kept. ``stop`` ends it with SIGTERM
-    and returns its exit code (0 for a clean stop)."""
+    from this checkout with ``extra`` arguments; its output is kept.
+    ``stop`` ends it with SIGTERM and returns its exit code (0 for a clean
+    stop)."""
 
-    def __init__(self):
+    def __init__(self, *extra: str):
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             self.port = s.getsockname()[1]
         self.lines = []
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "flux_tpu_torch.node", "-H", "127.0.0.1", "-p", str(self.port)],
+            [sys.executable, "-m", "flux_tpu_torch.node", "-H", "127.0.0.1", "-p", str(self.port), *extra],
             cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         self._reader = threading.Thread(target=lambda: self.lines.extend(iter(self.proc.stdout.readline, "")),
@@ -1862,7 +1932,448 @@ def phase_job_path(dev, out_dir: str, card: str) -> dict:
     note("d. demo2 root 4 with --profile-dir", res)
     if not kernels:
         log("d. the trace records no device kernel (CUPTI gave no kernel activity)")
-    return results
+    return results, want
+
+
+# ---- phase 18: the device mesh -------------------------------------------------
+
+# The meshes of phase 18 a, over the one card repeated: (rows, spp) shards.
+MESH_SHAPES = [(1, 1), (2, 1), (4, 1), (1, 2), (2, 2)]
+
+
+def card_mesh(dev, shape):
+    return make_mesh([dev] * (shape[0] * shape[1]), rows_shards=shape[0], spp_shards=shape[1])
+
+
+def job_config(argv: list):
+    """(SceneData, JobConfiguration) of a CLI argument list."""
+    opt = dict(zip(argv[1::2], argv[2::2]))
+    cfg = JobConfiguration(sample_root=int(opt["-r"]), max_trace_depth=int(opt["-d"]),
+                           rows_per_work_unit=int(opt["-R"]), seed=int(opt["--seed"]),
+                           nee="--nee" in argv, physical="--physical" in argv)
+    return load_scene(argv[0]), cfg
+
+
+def mesh_job(dev, argv: list, shape, out_dir: str) -> dict:
+    """``argv``'s job through RenderManager and a LocalWorker whose renderer
+    is a MeshRenderer of ``shape`` over the card repeated (the CLI's mesh
+    branch, on one card): the frame and the seconds from schedule_job to
+    the job's end. Fails on a job error, a JobFailed event, a retry round
+    or a unit not rendered once."""
+    sd, cfg = job_config(argv)
+    mesh = card_mesh(dev, shape)
+
+    def factory(job):
+        return MeshRenderer(job.scene_data, job.config.sample_root, job.config.max_trace_depth,
+                            seed=job.config.seed, mesh=mesh, nee=job.config.nee, physical=job.config.physical)
+
+    worker = LocalWorker(renderer_factory=factory, devices=[dev] * mesh.size)
+    check(worker.info().num_devices == mesh.size, "the worker does not report the mesh's devices")
+    manager = RenderManager([worker.handle()])
+    builder = ImageBuilder(output_dir=out_dir)
+    failures = FailureLog()
+    try:
+        t0 = time.perf_counter()
+        job = manager.schedule_job(sd, cfg, MultiSink([builder.sender(), failures]))
+        check(job.wait(timeout=600), f"mesh {shape}: the job did not end in 600 s")
+        seconds = time.perf_counter() - t0
+        check(builder.wait_finished(timeout=60), f"mesh {shape}: the image was not finished")
+        pixels = builder.get_image().pixels.copy()
+    finally:
+        builder.stop()
+        manager.stop()
+        worker.stop()
+    n_units = -(-sd.output_settings.image_height // cfg.rows_per_work_unit)
+    check(job.error is None and not failures.reasons, f"mesh {shape}: {job.error} {failures.reasons}")
+    check(job.retry_rounds == 0 and worker.units_done == n_units, f"mesh {shape}: {worker.units_done} units, "
+          f"{job.retry_rounds} retry rounds")
+    return {"pixels": pixels, "job_seconds": seconds, "units": worker.units_done}
+
+
+def bitwise(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and np.array_equal(a.view(np.int32), b.view(np.int32))
+
+
+def phase_mesh_main_path(dev, out_dir: str, card: str, want17: bytes) -> dict:
+    """Phase 18 a: demo2 at 800x600, root 128, depth 5, 12 units of 50 rows
+    through the manager and a MeshRenderer of each shape in MESH_SHAPES over
+    the card, in two rounds after a band loop each; rows-only meshes
+    byte-equal to the band loop, meshes with spp shards within float32's
+    reassociation bound of it; then ``cli.run -t 1 --rows-shards 1``,
+    byte-equal to phase 17's frame."""
+    demo2 = [os.path.join(HERE, "scenes", "demo2.yml"), "-r", "128", "-d", "5", "-R", "50", "--seed", "0"]
+    res = {"band_loop_seconds": [], "meshes": {}}
+    frames = {}
+    for rnd in range(2):
+        want, loop_s, frame = band_loop_ppm(dev, demo2)
+        check(want == want17, "phase 18's band loop differs from phase 17's bytes")
+        res["band_loop_seconds"].append(loop_s)
+        for shape in MESH_SHAPES:
+            label = f"demo2 on a {shape[0]}x{shape[1]} mesh"
+            ran, n, secs = run_path(label, lambda: mesh_job(dev, demo2, shape, os.path.join(out_dir, "a")))
+            k = shape[0] * shape[1]
+            check(n == {"sweep": 12 * k}, f"{label}: launches {n}, not {12 * k} of K1")
+            px = ran["pixels"]
+            row = res["meshes"].setdefault(f"{shape[0]}x{shape[1]}", {"job_seconds": [], "launches": n})
+            row["job_seconds"].append(ran["job_seconds"])
+            if shape[1] == 1:
+                check(bitwise(px, frame) and ppm_bytes(px) == want, f"{label}: not the band loop's bits")
+                row["bitwise_equal_to_band_loop"] = True
+            else:
+                # Sample shards add partial sums where one launch's thread
+                # adds its samples in turn: float32 reassociation, which
+                # for a thread's ceil(16384 / 32) = 512 terms can move a
+                # finalized value v <= 1 by up to 512 * 2^-24 * v (flux_tpu's
+                # atol 1e-5 is its gate at 4-16 spp; the CPU tests keep it).
+                d = float(np.abs(px - frame).max())
+                bound = -(-128 * 128 // launch_plan(50 * 800, 128 * 128).split) * 2.0 ** -24
+                row.update(max_abs_diff_vs_band_loop=d, mean_abs_diff_vs_band_loop=float(np.abs(px - frame).mean()),
+                           reassociation_bound=bound)
+                check(d <= bound, f"{label}: max |diff| {d} over the reassociation bound {bound}")
+            if rnd == 0:
+                frames[shape] = px
+            else:
+                check(bitwise(px, frames[shape]), f"{label}: two runs differ")
+    cli_dir = os.path.join(out_dir, "cli")
+    ran, n, secs = run_path("cli -t 1 --rows-shards 1", lambda: cli_run(
+        [*demo2, "-t", "1", "--rows-shards", "1", "--output-dir", cli_dir]))
+    check(ran["error"] is None and n == {"sweep": 12}, f"cli -t 1: {ran['error']} {n}")
+    with open(ran["out"], "rb") as f:
+        check(f.read() == want17, "cli -t 1 --rows-shards 1: not phase 17's bytes")
+    res["cli_t1"] = {"seconds": secs, "job_seconds": ran["band_seconds"], "launches": n, "ppm_equal": True}
+    for key, row in res["meshes"].items():
+        row["over_band_loop_s"] = [a - b for a, b in zip(row["job_seconds"], res["band_loop_seconds"])]
+    log(f"mesh main path (demo2 800x600, 16384 spp, depth 5, 12 units of 50 rows) on {card}:", json.dumps(res))
+    return {"result": res, "frames": frames}
+
+
+# Phase 18 b: (label, scene, nee, physical, stats, (rows, spp), band rows):
+# each slot's launch of the band at root 3, seed 42, depth 5, against the
+# plain version.
+MESH_CHECKS = [
+    ("K1", "demo2", False, False, False, (2, 2), 16),
+    ("K1", "demo2", False, False, False, (4, 4), 16),
+    ("K2", "demo2", False, False, True, (2, 2), 16),
+    ("K2", "demo2", False, False, True, (4, 2), 16),
+    ("K4 + K3", "demo3", True, True, False, (2, 2), 16),
+    ("K4 + K3", "demo3", True, True, False, (4, 2), 16),
+    ("K7", "demo5", True, False, False, (2, 2), 16),
+    ("K7", "demo5", True, False, False, (4, 2), 16),
+    ("K7 + K2", "demo5", True, False, True, (2, 2), 16),
+    ("K7 + K2", "demo5", True, False, True, (4, 2), 16),
+    ("K1, a 10-row band", "demo2", False, False, False, (4, 2), 10),  # the image's last 10 rows
+]
+
+
+def phase_mesh_launches(dev) -> dict:
+    """Phase 18 b: every slot of each MESH_CHECKS mesh, launched as the
+    MeshRenderer launches it (rows ``row0 + ri + k·R``, samples from
+    ``si·per_dev`` masked at 9, the band's split), against the plain version
+    at phase 3's gate; a slot wholly past the samples must add exact zeros;
+    the mesh's band against the Renderer's (rows-only: bitwise; else atol
+    1e-5 finalized). Then a band whose launch plan is not its shards'."""
+    out = {}
+    for label, name, nee, physical, stats, (R, S), n_rows in MESH_CHECKS:
+        sd = stock(name)
+        r = Renderer(sd, 3, 5, seed=42, device=dev, nee=nee, physical=physical)
+        # A 10-row band over 4 row shards renders 12 rows: the last two lie
+        # past the image's last row, and are rendered and dropped.
+        row0 = r.height - n_rows if n_rows == 10 else r.height // 2 - 8
+        strides, limits, errs = set(), [], []
+
+        def slots():
+            res = []
+            for ri in range(R):
+                for si in range(S):
+                    a = slot_launch(row0, n_rows, 0, 9, R, S, ri, si)
+                    res.append((a, r.render_rows_sum_range(with_stats=stats, **a)))
+            return res
+
+        launched, n, _ = run_path(f"mesh launches, {label} on {name} {R}x{S}", slots)
+        cfg = next(iter(n))
+        check(len(n) == 1 and n[cfg] == R * S, f"{label}: launches {n}")
+        for a, k in launched:
+            p = render_block(r.scene, r.cam, a["row0"], a["s0"], r.seed, img_w=r.width, img_h=r.height,
+                             n_rows=a["n_rows"], n_samples=a["n_samples"], root=3, max_depth=5,
+                             s_limit=a["s_limit"], row_stride=a["row_stride"], with_stats=stats, lights=r.lights,
+                             physical=physical, isect=None if r.uses_sweep_kernel else r.isect)
+            strides.add(a["row_stride"])
+            limits.append([a["s0"], a["s0"] + a["n_samples"], a["s_limit"]])
+            what = f"{label} on {name}, mesh {R}x{S}, slot rows {a['row0']}+k*{R}, samples [{a['s0']}, " \
+                   f"{a['s0'] + a['n_samples']}) limit {a['s_limit']}"
+            if a["s_limit"] <= a["s0"]:
+                check(not bool(k.any()) and not bool(p.any()), f"{what}: a slot past the samples added non-zeros")
+                continue
+            cmp = compare(k, p, 3, stats)
+            check_vs_plain(cmp, what)
+            errs.append(cmp["max_abs_diff"])
+        m = MeshRenderer(sd, 3, 5, seed=42, mesh=card_mesh(dev, (R, S)), nee=nee, physical=physical)
+        got = m.render_rows_sum_range(row0, n_rows, 0, 9, with_stats=stats)
+        want = r.render_rows_sum_range(row0, n_rows, 0, 9, with_stats=stats)
+        if S == 1:
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)), f"{label}: mesh band != Renderer band")
+        mesh_d = float((finalize(got[..., :3], root=3) - finalize(want[..., :3], root=3)).abs().max())
+        check(mesh_d <= 1e-5, f"{label}: mesh band {mesh_d} over atol 1e-5 of the Renderer's")
+        inside = sum(1 for s0, end, lim in limits if s0 < lim < end)
+        cut = sum(1 for s0, end, lim in limits if lim < end)
+        check(max(strides) > 1 and cut > 0, f"{label}: no strided launch cut by s_limit")
+        row = out.setdefault(cfg, {"checks": [], "max_abs_err": 0.0})
+        row["checks"].append({"label": label, "scene": name, "mesh": [R, S], "band_rows": n_rows,
+                              "row_stride": R, "slot_sample_ranges_and_limits": limits,
+                              "slots_with_s_limit_inside": inside, "slots_past_the_samples": cut - inside,
+                              "max_abs_diff_vs_plain": max(errs),
+                              "mesh_band_max_finalized_diff_vs_renderer": mesh_d})
+        row["max_abs_err"] = max(row["max_abs_err"], max(errs))
+        log(f"mesh launches vs plain ({label} on {name}, mesh {R}x{S}, {n_rows}-row band, root 3):",
+            json.dumps(row["checks"][-1]))
+    for cfg, row in out.items():
+        check(any(c["slots_with_s_limit_inside"] for c in row["checks"]), f"{cfg}: no s_limit inside a launch")
+    # The split hazard: a 16-row band at 17 samples is cut at another split
+    # than its 4-row shards would be alone; the shards take the band's.
+    sd, n = stock("demo2"), 17
+    plans = (launch_plan(16 * 800, n).split, launch_plan(4 * 800, n).split)
+    check(plans[0] != plans[1], "the split-hazard band's plans agree")
+    r = Renderer(sd, 5, 5, seed=42, device=dev)
+    m = MeshRenderer(sd, 5, 5, seed=42, mesh=card_mesh(dev, (4, 1)))
+    want = r.render_rows_sum_range(292, 16, 0, n, with_stats=True)
+    got = m.render_rows_sum_range(292, 16, 0, n, with_stats=True)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)), "a rows mesh lost its band's split")
+    out["split_hazard"] = {"band_split": plans[0], "shard_own_split": plans[1], "bitwise_equal": True}
+    log("mesh, the split hazard (demo2 16x800 band, 17 spp, 4x1 mesh):", json.dumps(out["split_hazard"]))
+    return out
+
+
+def progressive_run(renderer, n_pass: int, target: float = 0.0, rows_per_band=None):
+    """ProgressiveRenderer passes of ``n_pass`` until complete, or until the
+    p99 relative stderr drops below ``target``, as run_progressive does."""
+    pr = ProgressiveRenderer.from_renderer(renderer, rows_per_band=rows_per_band)
+    err = None
+    while not pr.complete:
+        pr.render_pass(n_pass)
+        err = pr.max_rel_stderr()
+        if target > 0 and err is not None and err < target:
+            break
+    return pr, err
+
+
+def phase_mesh_progressive(dev, out_dir: str, mis_mse: float) -> dict:
+    """Phase 18 c: demo2's adaptive stop, demo3's MIS MSE, checkpoints both
+    ways between a rows (2, 1) mesh and one card, and the Cornell box
+    (K7, K7 + K2) through the mesh; every launch count read around its path."""
+    demo2, demo3, demo5 = (load_scene(os.path.join(HERE, "scenes", f"{s}.yml")) for s in ("demo2", "demo3", "demo5"))
+    rows2 = card_mesh(dev, (2, 1))
+    res, launches = {}, {}
+
+    # Adaptive: demo2 root 32 depth 5, passes of 64, target 0.12.
+    one, err1 = progressive_run(Renderer(demo2, 32, 5, seed=0, device=dev), 64, 0.12)
+    (mesh, errm), n, secs = run_path("demo2 adaptive on a 2x1 mesh", lambda: progressive_run(
+        MeshRenderer(demo2, 32, 5, seed=0, mesh=rows2), 64, 0.12))
+    res["adaptive"] = {"spp_done": mesh.samples_done, "p99_rel_stderr": errm, "one_card_p99": err1,
+                       "seconds": secs, "launches": n}
+    check(set(n) == {"sweep+stats"}, f"adaptive mesh: launches {n}")
+    check(mesh.samples_done == one.samples_done == ADAPTIVE_SPP, f"adaptive mesh stopped at {mesh.samples_done}")
+    check(errm == err1 and abs(errm - ADAPTIVE_P99) <= 5e-4, f"adaptive mesh p99 {errm} vs one card {err1}")
+    check(bitwise(mesh.acc, one.acc) and bitwise(mesh.lum_sq, one.lum_sq), "adaptive mesh: sums differ")
+    launches.update(n)
+
+    # MIS: 16 spp (seed 0) against 1024 spp (seed 7), both on the mesh.
+    def mis():
+        truth = MeshRenderer(demo3, 32, 5, seed=7, mesh=rows2, nee=True, physical=True).render_image(600)
+        img16 = MeshRenderer(demo3, 4, 5, seed=0, mesh=rows2, nee=True, physical=True).render_image(600)
+        return truth, img16
+
+    (truth, img16), n, secs = run_path("demo3 MIS on a 2x1 mesh", mis)
+    mse = float(((img16 - truth) ** 2).mean())
+    res["mis"] = {"mse_16spp_vs_1024spp": mse, "one_card_mse": mis_mse, "seconds": secs, "launches": n}
+    check(set(n) == {"sweep+nee+physical"}, f"MIS mesh: launches {n}")
+    check(mse == mis_mse and abs(mse / MIS_MSE - 1.0) <= 0.02, f"MIS mesh MSE {mse}, one card {mis_mse}")
+    launches.update(n)
+
+    # Checkpoints: demo3 MIS + stats at root 8, passes of 16, both ways.
+    def interchange():
+        whole = progressive_run(Renderer(demo3, 8, 5, seed=0, device=dev, nee=True, physical=True), 16)[0]
+        out = {}
+        for first in ("mesh", "card"):
+            make = {
+                "mesh": lambda: MeshRenderer(demo3, 8, 5, seed=0, mesh=rows2, nee=True, physical=True),
+                "card": lambda: Renderer(demo3, 8, 5, seed=0, device=dev, nee=True, physical=True),
+            }
+            a = ProgressiveRenderer.from_renderer(make[first]())
+            a.render_pass(16)
+            a.render_pass(16)
+            ck = os.path.join(out_dir, f"{first}.ckpt.npz")
+            a.save(ck)
+            b = ProgressiveRenderer.from_renderer(make["card" if first == "mesh" else "mesh"]())
+            b.resume(ck)
+            while not b.complete:
+                b.render_pass(16)
+            out[f"{first} -> other"] = bitwise(b.acc, whole.acc) and bitwise(b.lum_sq, whole.lum_sq)
+        return out
+
+    eq, n, secs = run_path("demo3 MIS checkpoints between a 2x1 mesh and one card", interchange)
+    res["checkpoints"] = {**eq, "seconds": secs, "launches": n}
+    check(all(eq.values()), f"checkpoints: {eq}")
+    check(n.get("sweep+nee+physical+stats", 0) > 0, f"checkpoints: launches {n}")
+    launches.update(n)
+
+    # The Cornell box: a --nee job through the mesh (K7), bytes of the band
+    # loop; a progressive NEE render on it (K7 + K2), the one card's sums.
+    argv5 = [os.path.join(HERE, "scenes", "demo5.yml"), "-r", "8", "-d", "5", "-R", "50", "--seed", "0", "--nee"]
+    want5, _, _ = band_loop_ppm(dev, argv5)
+    ran, n, secs = run_path("demo5 --nee job on a 2x1 mesh", lambda: mesh_job(dev, argv5, (2, 1), out_dir))
+    check(ppm_bytes(ran["pixels"]) == want5, "demo5 mesh job: not the band loop's bytes")
+    check(n == {"sweep+tri+nee+trilight": 22}, f"demo5 mesh job: launches {n}")
+    res["demo5_job"] = {"job_seconds": ran["job_seconds"], "launches": n, "ppm_equal": True}
+    launches.update(n)
+    one5 = progressive_run(Renderer(demo5, 4, 5, seed=0, device=dev, nee=True), 16)[0]
+    mesh5, n, secs = run_path("demo5 progressive NEE on a 2x1 mesh", lambda: progressive_run(
+        MeshRenderer(demo5, 4, 5, seed=0, mesh=rows2, nee=True), 16)[0])
+    check(set(n) == {"sweep+tri+nee+trilight+stats"}, f"demo5 progressive mesh: launches {n}")
+    check(bitwise(mesh5.acc, one5.acc) and bitwise(mesh5.lum_sq, one5.lum_sq), "demo5 progressive mesh: sums differ")
+    res["demo5_progressive"] = {"seconds": secs, "launches": n, "bitwise_equal": True}
+    launches.update(n)
+    log("mesh progressive paths (2x1 mesh on one card):", json.dumps(res))
+    return {"result": res, "launches": launches}
+
+
+def mesh_rank(rank: int, port: int, out: str) -> int:
+    """One of phase 18 d's two processes (``--mesh-rank``): joins a gloo
+    group with the other, both on the card, and renders demo2 at 800x600,
+    16384 spp over a rows (2, 1) global mesh, keeping its own rows
+    (``render_rows_local``), then over an spp (1, 2) one, band by band."""
+    dev = torch.device("cuda", 0)
+    init_multihost(f"127.0.0.1:{port}", num_processes=2, process_id=rank, backend="gloo")
+    sd = load_scene(os.path.join(HERE, "scenes", "demo2.yml"))
+    rows_r = MeshRenderer(sd, 128, 5, seed=0, mesh=make_mesh([dev], rows_shards=2, spp_shards=1))
+    spp_r = MeshRenderer(sd, 128, 5, seed=0, mesh=make_mesh([dev], rows_shards=1, spp_shards=2))
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    got = [rows_r.render_rows_local(row0, 50) for row0 in range(0, 600, 50)]
+    torch.cuda.synchronize()
+    rows_s = time.perf_counter() - t0
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    frame = spp_r.render_image(rows_per_band=50)
+    spp_s = time.perf_counter() - t0
+    np.savez(out, rows=np.concatenate([g[0] for g in got]), pixels=np.concatenate([g[1] for g in got]),
+             spp_frame=frame, rows_seconds=rows_s, spp_seconds=spp_s)
+    torch.distributed.destroy_process_group()
+    print(f"mesh rank {rank}: rows {rows_s:.3f} s, spp {spp_s:.3f} s", flush=True)
+    return 0
+
+
+def phase_mesh_two_processes(out_dir: str, frames: dict, card: str) -> dict:
+    """Phase 18 d: two processes of this script (``--mesh-rank``), both on
+    the card, over gloo: the rows (2, 1) frame assembled from each one's
+    rows and each one's spp (1, 2) frame, bitwise against phase 18 a's
+    one-process meshes of those shapes; fails on a rank that does not exit
+    0."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(out_dir, f"rank{r}.npz") for r in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mesh-rank", str(r),
+                               "--mesh-port", str(port), "--mesh-out", outs[r]], cwd=HERE,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        log(f"mesh rank {r} (exit code {p.returncode}):\n{text.rstrip()[-3000:]}")
+        check(p.returncode == 0, f"mesh rank {r} exited {p.returncode}")
+    z = [np.load(o) for o in outs]
+    frame = np.full((600, 800, 3), np.nan, np.float32)
+    rows = []
+    for zi in z:
+        frame[zi["rows"]] = zi["pixels"]
+        rows.extend(zi["rows"].tolist())
+    check(sorted(rows) == list(range(600)), "the two processes' rows do not cover the frame once")
+    check(bitwise(frame, frames[(2, 1)]), "two processes, rows 2x1: not the one-process mesh's bits")
+    for r, zi in enumerate(z):
+        check(bitwise(zi["spp_frame"], frames[(1, 2)]), f"two processes, spp 1x2, rank {r}: not the one-process bits")
+    res = {"rows_2x1_seconds": [float(zi["rows_seconds"]) for zi in z],
+           "spp_1x2_seconds": [float(zi["spp_seconds"]) for zi in z], "wall_seconds_with_start": wall,
+           "rows_bitwise_equal": True, "spp_bitwise_equal": True}
+    log(f"mesh over two processes (gloo, both on the card; demo2 800x600, 16384 spp) on {card}:", json.dumps(res))
+    return res
+
+
+def phase_mesh_node_and_sampler(dev, out_dir: str, want17: bytes) -> dict:
+    """Phase 18 e: a node with ``-t 1`` serves demo2 byte-equal to phase
+    17's; ``sampler_debug`` on the card writes the CPU's eight files."""
+    demo2 = [os.path.join(HERE, "scenes", "demo2.yml"), "-r", "128", "-d", "5", "-R", "50", "--seed", "0"]
+    node = NodeProcess("-t", "1")
+    try:
+        res = job_path("demo2 node -t 1", demo2 + ["-L", "-n", node.endpoint], os.path.join(out_dir, "node"),
+                       want17, "sweep")
+    finally:
+        rc = node.stop()
+        log(f"node -t 1 output (exit code {rc}):\n" + "".join(node.lines).rstrip())
+    check(rc == 0, f"the node -t 1 exited {rc}")
+    check(any("serving 1 of 1 local devices" in ln for ln in node.lines), "the node did not say what it serves")
+    files = {}
+    for d in ("cuda", "cpu"):
+        sub = os.path.join(out_dir, f"sampler-{d}")
+        check(sampler_debug.main(["-r", "10", "--device", d, "--output-dir", sub]) == 0, f"sampler_debug on {d}")
+        files[d] = {f: open(os.path.join(sub, f), "rb").read() for f in sorted(os.listdir(sub))}
+    check(len(files["cuda"]) == 8 and files["cuda"] == files["cpu"], "sampler_debug: the card's files differ")
+    res = {"node": res, "sampler_debug_files_equal": sorted(files["cuda"])}
+    log("mesh phase, node -t 1 and sampler_debug:", json.dumps(res))
+    return res
+
+
+# Phase 18's kernels line: each configuration as a rows (2, 1) mesh
+# launches it on its phase 18 path, measured at that launch.
+MESH_MEASURE = [
+    ("sweep", "a", "flux_tpu/ops/pallas_kernel.py:135",
+     dict(name="demo2", row0=300, n_rows=25, n_samples=16384, root=128), 50),
+    ("sweep+stats", "c", "flux_tpu/ops/pallas_kernel.py:908",
+     dict(name="demo2", row0=256, n_rows=64, n_samples=64, root=32, stats=True), 128),
+    ("sweep+nee+physical", "c", "flux_tpu/ops/pallas_kernel.py:868",
+     dict(name="demo3", row0=0, n_rows=300, n_samples=16, root=4, nee=True, physical=True), 600),
+    ("sweep+nee+physical+stats", "c", "flux_tpu/ops/pallas_kernel.py:868",
+     dict(name="demo3", row0=256, n_rows=64, n_samples=16, root=8, nee=True, physical=True, stats=True), 128),
+]
+MESH_SCENE_MEASURE = [
+    ("sweep+tri+nee+trilight", "flux_tpu/ops/pallas_kernel.py:302",
+     dict(accel="sweep", row0=250, n_rows=25, n_samples=64, root=8, plain_rows=4, nee=True), 50),
+    ("sweep+tri+nee+trilight+stats", "flux_tpu/ops/pallas_kernel.py:302",
+     dict(accel="sweep", row0=256, n_rows=64, n_samples=16, root=4, plain_rows=4, nee=True, stats=True), 128),
+]
+
+
+def mesh_kernel_entries(dev, main_launches: dict, path_launches: dict, checks: dict) -> list:
+    """The kernels line's entries of phase 18: launches from the mesh paths
+    (a: the main path's 2x1 mesh; c: the progressive and Cornell paths),
+    the time, bound and plain version at that path's launch, and 18 b's
+    strided, masked checks."""
+    entries = []
+    for cfg, path, replaces, shape, band in MESH_MEASURE:
+        n = main_launches.get(cfg, 0) if path == "a" else path_launches.get(cfg, 0)
+        check(n > 0, f"no mesh path launched {cfg}")
+        split = launch_plan(band * 800, shape["n_samples"]).split
+        m = measure_launch(dev, **shape, row_stride=2, split=split)
+        e = kernel_entry(f"sweep_megakernel[{cfg}] on a 2x1 mesh", replaces, n, m)
+        e["mesh_checks"] = checks.get(cfg)
+        entries.append(e)
+    for cfg, replaces, shape, band in MESH_SCENE_MEASURE:
+        n = path_launches.get(cfg, 0)
+        check(n > 0, f"no mesh path launched {cfg}")
+        split = launch_plan(band * 512, shape["n_samples"]).split
+        m = measure_scene_launch(dev, stock("demo5"), f"{cfg} on a 2x1 mesh", **shape, row_stride=2, split=split)
+        e = kernel_entry(f"scene_megakernel[{cfg}] on a 2x1 mesh", replaces, n, m,
+                         source="flux_tpu_torch/csrc/scene_megakernel.cu")
+        e.update(plain_shape=m["plain_shape"], mesh_checks=checks.get(cfg))
+        entries.append(e)
+    return entries
 
 
 def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
@@ -1891,11 +2402,16 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", help="root of another checkout (say the parent commit's, unpacked by git "
                     "archive): phase 2 builds its kernel sources beside the current ones, and phase 16 times "
                     "every row through both packages on the same launches, bitwise")
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)  # phase 18 d's processes
+    ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     # 1. probe
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.mesh_rank is not None:
+        return mesh_rank(args.mesh_rank, args.mesh_port, args.mesh_out)
     dev = torch.device("cuda")
     card = smi()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1976,11 +2492,27 @@ def main(argv=None) -> int:
     with phase_timer("15 the triangle fold, step by step"):
         phase_tri_steps(dev, built_variants)
     if parent is not None:
-        with phase_timer("16 against the parent's build"):
+        with phase_timer("16 against the parent's build"), tempfile.TemporaryDirectory() as tmp:
             parent_rows(dev, parent)
+            parent_job_path(parent, tmp)
     with phase_timer("17 the job path"), tempfile.TemporaryDirectory() as tmp:
-        job = phase_job_path(dev, tmp, card)
+        job, want17 = phase_job_path(dev, tmp, card)
     kernels[0]["job_path_launches"] = job["a. demo2 800x600 root 128 depth 5 -R 50, local worker"]["launches"].get("sweep", 0)
+    # 18: the device mesh, on the card repeated
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase_timer("18 a the mesh's main path"):
+            mesh_main = phase_mesh_main_path(dev, tmp, card, want17)
+        with phase_timer("18 b mesh launches vs plain"):
+            mesh_checks = phase_mesh_launches(dev)
+        with phase_timer("18 c the mesh's progressive and Cornell box paths"):
+            mesh_paths = phase_mesh_progressive(dev, tmp, paths["mis"]["mse_16spp_vs_1024spp"])
+        with phase_timer("18 d two processes"):
+            phase_mesh_two_processes(tmp, mesh_main["frames"], card)
+        with phase_timer("18 e the node's -t and sampler_debug"):
+            phase_mesh_node_and_sampler(dev, tmp, want17)
+        with phase_timer("18 f the mesh launches measured"):
+            kernels += mesh_kernel_entries(dev, mesh_main["result"]["meshes"]["2x1"]["launches"],
+                                           mesh_paths["launches"], mesh_checks)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -18,6 +18,9 @@ checkpointed renders are in ``checkpoint.py``; ``genscene.py`` and
 round of ``sched.py``) hands out in row bands to a local worker and to
 render nodes (``workers.py``, ``node.py``, ``wire.py``), whose frames are
 ``flux_tpu``'s; the PPM encoder is native host code (``csrc/fluxnative.cpp``).
+Several devices, or processes, render one job over a device mesh
+(``parallel/``); ``sampler_debug.py`` plots the sample grids
+(``samplers/grids.py``).
 
 Entry points (``Renderer``, ``cli``) run on the CUDA card unless the caller
 asks for the CPU (``device="cpu"``), where the plain PyTorch version of the

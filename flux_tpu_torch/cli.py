@@ -10,14 +10,18 @@ the render), the estimator flags ``--nee`` and ``--physical``, the
 progressive flags ``--progressive SPP``, ``--checkpoint PATH``,
 ``--adaptive TOL`` and ``--resume``, and ``--accel`` (``sweep`` or
 ``scan``; by default the scan above 64 spheres). ``--device`` (``cuda`` by
-default; ``cpu`` runs the plain PyTorch version) is the local worker's.
+default; ``cpu`` runs the plain PyTorch version) is the local worker's;
+``-t/--devices`` takes that many of its cards (default: all; with the CPU,
+that many shards of it) and ``--rows-shards`` the mesh's row shards, as in
+``flux_tpu``.
 
 A render is a job: ``main`` → ``RenderManager`` → a ``LocalWorker`` on this
 process's device and a ``NetworkWorker`` per ``-n`` (render nodes of either
 package), which pull work units of ``-R`` rows; on the card each unit is
 one launch of a megakernel (the sweep megakernel, or the scene megakernel
-for the scan and for triangles). ``--progressive`` renders on the local
-device in passes instead. ``-t`` (several local cards) is not ported yet.
+for the scan and for triangles), or with several devices one launch per
+slot of a device mesh (``parallel/``). ``--progressive`` renders on the
+local devices in passes instead, by default row-sharded over them.
 
 Run: ``python -m flux_tpu_torch.cli scenes/demo2.yml -r 128 -d 5``, or
 ``python -m flux_tpu_torch.cli scenes/demo3.yml -r 32 -d 5 --nee --physical
@@ -40,7 +44,7 @@ from .debug import set_debug
 from .image import write_png, write_ppm
 from .job import JobConfiguration
 from .manager import ImageBuilder, JobFailed, MultiSink, RenderManager
-from .render import Renderer, resolve_device
+from .render import Renderer
 from .scene import load_scene
 
 DEFAULT_SAMPLE_ROOT = 1
@@ -89,6 +93,21 @@ def build_parser() -> argparse.ArgumentParser:
         default="cuda",
         help="the local worker's device: cuda (default) runs the megakernels; cpu their plain "
         "PyTorch version",
+    )
+    p.add_argument(
+        "-t",
+        "--devices",
+        type=int,
+        default=None,
+        help="number of local devices to use (default: all); with --device cpu, that many CPU shards",
+    )
+    p.add_argument(
+        "--rows-shards",
+        type=int,
+        default=None,
+        help="tile-sharding factor of the local device mesh; the rest goes "
+        "to sample sharding (default: auto — sample-only at demo scale, "
+        "row sharding engages on memory-bound tall frames)",
     )
     p.add_argument(
         "--accel",
@@ -145,7 +164,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run_progressive(args, scene) -> dict:
-    """The --progressive path on the local device: passes of
+    """The --progressive path on the local devices: passes of
     ``args.progressive`` samples over the whole frame, a checkpoint after
     each pass, an early stop once the noise target is met, and with
     ``-g`` the preview after each pass. Prints the status lines of
@@ -153,12 +172,26 @@ def run_progressive(args, scene) -> dict:
     loop's seconds, the samples rendered in this run, the samples done and
     the last p99 relative standard error."""
     from .checkpoint import ProgressiveRenderer
+    from .parallel import MeshRenderer, local_devices, make_mesh
     from .termview import TermPreview
 
-    renderer = Renderer(
-        scene, args.root, args.depth, seed=args.seed, device=args.device, accel=args.accel,
-        nee=args.nee, physical=args.physical,
-    )
+    devices = local_devices(args.device, args.devices)
+    if len(devices) > 1:
+        # Rows-only sharding by default: every pixel's samples are summed
+        # on one device in the single-device order, so the accumulators,
+        # checkpoints and adaptive stops are bit-identical to one device's.
+        # An explicit --rows-shards buys an spp axis for whoever wants it.
+        rows_shards, spp_shards = (len(devices), 1) if args.rows_shards is None else (args.rows_shards, None)
+        renderer = MeshRenderer(
+            scene, args.root, args.depth, seed=args.seed,
+            mesh=make_mesh(devices, rows_shards=rows_shards, spp_shards=spp_shards), accel=args.accel,
+            nee=args.nee, physical=args.physical,
+        )
+    else:
+        renderer = Renderer(
+            scene, args.root, args.depth, seed=args.seed, device=devices[0], accel=args.accel,
+            nee=args.nee, physical=args.physical,
+        )
     pr = ProgressiveRenderer.from_renderer(renderer)
     if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
         pr.resume(args.checkpoint)
@@ -204,21 +237,34 @@ def run_progressive(args, scene) -> dict:
     }
 
 
-def make_local_worker(args):
-    """A LocalWorker on ``--device`` (resolved here: it raises without a
-    card unless the CPU is named), whose factory builds the port's Renderer
-    with the job's configuration and ``--accel``."""
+def make_local_worker(args, scene):
+    """A LocalWorker on ``-t`` devices of ``--device`` (resolved here: it
+    raises without a card unless the CPU is named), whose factory builds
+    the port's Renderer, or with several devices a MeshRenderer over one
+    mesh for every job (``--rows-shards``, or a shape picked from the
+    scene's frame), with the job's configuration and ``--accel``."""
+    from .parallel import MeshRenderer, local_devices, make_mesh
     from .workers import LocalWorker, default_renderer_factory
 
-    device = resolve_device(args.device)
+    devices = local_devices(args.device, args.devices)
+    if len(devices) > 1:
+        out = scene.output_settings
+        mesh = make_mesh(devices, rows_shards=args.rows_shards, n_rows_hint=out.image_height,
+                         n_cols_hint=out.image_width)
 
-    def factory(job):
-        return default_renderer_factory(job, device=device, accel=args.accel)
+        def factory(job):
+            return MeshRenderer(
+                job.scene_data, job.config.sample_root, job.config.max_trace_depth, seed=job.config.seed,
+                mesh=mesh, accel=args.accel, nee=job.config.nee, physical=job.config.physical,
+            )
+    else:
+        def factory(job):
+            return default_renderer_factory(job, device=devices[0], accel=args.accel)
 
-    return LocalWorker(renderer_factory=factory, device=device)
+    return LocalWorker(renderer_factory=factory, devices=devices)
 
 
-class _FailureLog:
+class FailureLog:
     """Event sink that keeps and prints each JobFailed: a worker's failure
     is shown even when a retry round saves the job."""
 
@@ -281,7 +327,11 @@ def _preview_loop(args, scene, manager, builder, sink, job, jobcfg):
                 job = manager.schedule_job(scene, jobcfg, sink)
                 last = -1.0
     # Always leave the finished frame behind: a job that ends inside the
-    # first wait breaks the loop before any refresh.
+    # first wait breaks the loop before any refresh. The job's handle is
+    # done before the builder has taken its last rows off its queue: wait
+    # for the builder (the manager sends RenderingFinished after the rows,
+    # a cancelled job too).
+    builder.wait_finished(timeout=60)
     img = builder.get_image()
     if img is not None:
         write_png(preview_path, img)
@@ -301,7 +351,7 @@ def _run_job_path(args, scene) -> dict:
 
     workers = []
     if not args.no_local:
-        w = make_local_worker(args)
+        w = make_local_worker(args, scene)
         info = w.info()
         print(f"Local worker ready, info:\nDevices: {info.num_devices} ({info.platform})")
         workers.append(w)
@@ -328,7 +378,7 @@ def _run_job_path(args, scene) -> dict:
             physical=args.physical,
         )
         builder = ImageBuilder(output_dir=args.output_dir, write_png_too=args.png)
-        failures = _FailureLog()
+        failures = FailureLog()
         print("Sending job to rendering manager")
         t0 = time.perf_counter()
         sink = MultiSink([builder.sender(), failures])

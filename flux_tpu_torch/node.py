@@ -1,4 +1,4 @@
-"""Render-node daemon: serves this host's CUDA card to a remote master
+"""Render-node daemon: serves this host's CUDA cards to a remote master
 (``flux_tpu/node.py``; flux-node/src/main.rs).
 
 Listens on 0.0.0.0:2000 by default and keeps one LocalWorker for the
@@ -13,7 +13,8 @@ As in ``flux_tpu``, every master is accepted at once on its own thread (the
 reference serves one at a time, main.rs:96-111); the handshake carries
 ``busy``/``queued`` status, and jobs queue on the shared LocalWorker.
 
-Run: ``python -m flux_tpu_torch.node -p 2099`` (on the card), or with
+Run: ``python -m flux_tpu_torch.node -p 2099`` (on the cards; ``-t N``
+serves the first N, a device mesh where more than one), or with
 ``--device cpu`` (the plain PyTorch version); then
 ``python -m flux_tpu_torch.cli scenes/demo1.yml -r 2 -n localhost:2099 -L``.
 """
@@ -32,6 +33,7 @@ from .constants import DEFAULT_PORT
 from .debug import d_println, set_debug
 from .job import Job, WorkUnit
 from .manager import JobFailed, RowsReady, WaitGroup
+from .parallel import local_devices
 from .render import resolve_device
 from .workers import LocalWorker
 from . import wire
@@ -140,15 +142,18 @@ def handle_client(conn: socket.socket, worker: LocalWorker) -> None:
 
 
 def serve(host: str = "0.0.0.0", port: int = DEFAULT_PORT, *, max_connections=None,
-          ready_event: threading.Event = None, device=None) -> None:
+          ready_event: threading.Event = None, device=None, devices: int = None) -> None:
     """Accept loop — one thread per master (contrast: the reference serves
     serially, flux-node/src/main.rs:96-111,141-152).
 
     ``device`` is what the node's renderer runs on (the CUDA card unless the
-    CPU is named). ``max_connections`` bounds how many connections are
-    ACCEPTED in total (tests use it to bound the daemon's life); the daemon
-    exits once they all complete."""
-    worker = LocalWorker(name="node", device=device)
+    CPU is named); ``devices`` limits how many of its cards the node's
+    renderer drives (the flux-node ``-t`` threads analog; default all; on
+    the CPU, that many shards), a device mesh where more than one.
+    ``max_connections`` bounds how many connections are ACCEPTED in total
+    (tests use it to bound the daemon's life); the daemon exits once they
+    all complete."""
+    worker = LocalWorker(name="node", devices=local_devices(device, devices))
     srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
     srv.bind((host, port))
@@ -184,7 +189,7 @@ def serve(host: str = "0.0.0.0", port: int = DEFAULT_PORT, *, max_connections=No
 def prepare_card(dev: torch.device) -> None:
     """Create the card's context, and build (where they are not built yet)
     and load both kernel libraries, before the node listens: a master's
-    first unit then pays neither."""
+    first unit then pays neither. Run on each card the node serves."""
     from .ops import build
 
     torch.zeros(1, device=dev)
@@ -195,8 +200,9 @@ def prepare_card(dev: torch.device) -> None:
 
 def main(argv=None) -> int:
     """flux-node CLI (flux-node/src/main.rs:119-152): ``-H/--host``,
-    ``-p/--port``, ``--verbose`` and ``--device`` (``cuda`` by default;
-    raises without a card unless ``cpu``)."""
+    ``-p/--port``, ``-t/--devices`` (how many local devices to serve),
+    ``--verbose`` and ``--device`` (``cuda`` by default; raises without a
+    card unless ``cpu``)."""
     import argparse
 
     p = argparse.ArgumentParser(prog="flux-tpu-torch-node", description="Render node daemon")
@@ -208,16 +214,30 @@ def main(argv=None) -> int:
         default="cuda",
         help="cuda (default) runs the megakernels; cpu their plain PyTorch version",
     )
+
+    def _positive(v):
+        n = int(v)
+        if n < 1:
+            raise argparse.ArgumentTypeError("must be >= 1")
+        return n
+
+    p.add_argument(
+        "-t", "--devices", type=_positive, default=None,
+        help="local devices to serve (default: all; with --device cpu, that many CPU shards)",
+    )
     p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
     if args.verbose:
         set_debug(True)
     dev = resolve_device(args.device)
-    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "the CPU"
-    print(f"flux-node-torch: serving 1 device ({dev.type}: {name})", flush=True)
+    devs = local_devices(dev, args.devices)
+    n = torch.cuda.device_count() if dev.type == "cuda" else len(devs)
+    name = torch.cuda.get_device_name(devs[0]) if dev.type == "cuda" else "the CPU"
+    print(f"flux-node-torch: serving {len(devs)} of {n} local devices ({dev.type}: {name})", flush=True)
     if dev.type == "cuda":
         t0 = time.perf_counter()
-        prepare_card(dev)
+        for d in dict.fromkeys(devs):
+            prepare_card(d)
         print(f"flux-node-torch: context and kernels ready in {time.perf_counter() - t0:.2f} s", flush=True)
 
     def stop(signum, frame):
@@ -226,7 +246,7 @@ def main(argv=None) -> int:
     # SIGTERM, like Ctrl-C, stops the node cleanly: exit code 0.
     signal.signal(signal.SIGTERM, stop)
     try:
-        serve(host=args.host, port=args.port, device=dev)
+        serve(host=args.host, port=args.port, device=dev, devices=args.devices)
     except KeyboardInterrupt:
         print("flux-node-torch: stopped", flush=True)
     return 0

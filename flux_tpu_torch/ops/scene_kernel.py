@@ -50,7 +50,7 @@ from . import build
 from .intersect import SCAN_BLOCK, TRI_SCAN_BLOCK, Intersector, ScanLayout, TriLayout, _block_boxes
 from .nee import LightTensors
 from .sweep_kernel import COUNT_NAMES as TRACER_COUNT_NAMES
-from .sweep_kernel import MAX_PLANES, FluxScene, check_launch, pack_scene, plan_launch
+from .sweep_kernel import MAX_PLANES, FluxScene, check_launch, check_split, pack_scene, plan_launch
 
 __all__ = [
     "render_block_scene",
@@ -582,6 +582,7 @@ def render_block_scene(
     lights: Optional[LightTensors] = None,
     physical: bool = False,
     work_counts: Optional[torch.Tensor] = None,
+    split: Optional[int] = None,
     **skips: bool,
 ) -> torch.Tensor:
     """Radiance sums over samples [s0, s0+n_samples) of rows
@@ -590,7 +591,9 @@ def render_block_scene(
     intersection of ``isect`` (sweep or scan) and the scene's triangles.
 
     ``skips`` are :func:`pack_geom`'s switches (``scan_skip``, ``tri_skip``,
-    ``two_level``), which change the kernel's work and not its result. On
+    ``two_level``), which change the kernel's work and not its result.
+    ``split`` is as for :func:`~flux_tpu_torch.ops.sweep_kernel.render_block_sweep`.
+    On
     the card, ``work_counts`` (optional contiguous int32 ``(N_COUNTS,
     n_rows·img_w)`` tensor) receives each pixel's work counters summed over
     its samples (``COUNT_NAMES``), including the blocks a perfect skip would
@@ -598,6 +601,7 @@ def render_block_scene(
     ``with_stats``. The launch's plan is kept as
     ``render_block_scene.last_plan``."""
     dev = scene.device
+    check_split(split)
     if not set(skips) <= _SKIPS:
         raise TypeError(f"unknown options {sorted(set(skips) - _SKIPS)}")
     if dev.type == "cpu":
@@ -643,7 +647,7 @@ def render_block_scene(
     geom, keep = pack_geom(scene, isect, lights, dev, **skips)
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
     plan = plan_launch(functools.partial(lib.flux_scene_blocks_per_sm, ctypes.byref(geom)), dev, n_pix, n_samples,
-                       with_stats, lights is not None, physical, work_counts is not None, max_depth)
+                       with_stats, lights is not None, physical, work_counts is not None, max_depth, split)
     name = config_name(isect.mode, scene.num_triangles > 0, with_stats, lights is not None, physical,
                        tri_lights=lights is not None and lights.has_tris)
     with build.LAUNCH_LOCK, torch.cuda.device(dev):

@@ -31,7 +31,7 @@ import torch
 
 from ..constants import T_MIN
 from ..scene import MaterialKind, SceneTensors
-from ..vec import Vec3, dot, reflect
+from ..vec import Vec3, dot, pow32, reflect
 from ..vec import where as vwhere
 from .brdf import sample_directions
 from .intersect import Intersector, sphere_t
@@ -133,7 +133,7 @@ def bounce(
         max(r·wd, 0)^e, the lobe's density corrected for the below-horizon
         flip, and 1.0 where the flipped twin lies below the horizon."""
         rw = torch.clamp_min(mirror.x * wd.x + mirror.y * wd.y + mirror.z * wd.z, 0.0)
-        phong = torch.pow(rw, hit.exponent)
+        phong = pow32(rw, hit.exponent)
         flipped = Vec3(2.0 * rw * mirror.x - wd.x, 2.0 * rw * mirror.y - wd.y, 2.0 * rw * mirror.z - wd.z)
         dup = torch.where(dot(hit.normal, flipped) < 0.0, 1.0, 0.0)
         pdf = (hit.exponent + 1.0) * _HALF_INV_PI * phong * (1.0 + dup)

@@ -50,6 +50,7 @@ __all__ = [
     "flops_lower_bound",
     "LaunchPlan",
     "launch_plan",
+    "SPLITS",
 ]
 
 MAX_SPHERES = 64
@@ -296,12 +297,24 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def check_split(split: Optional[int]) -> None:
+    """Raises on a caller's split that the kernels do not take."""
+    if split is not None and split not in SPLITS:
+        raise ValueError(f"split must be one of {SPLITS}, got {split!r}")
+
+
 def plan_launch(blocks_per_sm, dev: torch.device, n_pix: int, n_samples: int, with_stats: bool,
-                nee: bool, physical: bool, count: bool, max_depth: int) -> LaunchPlan:
+                nee: bool, physical: bool, count: bool, max_depth: int,
+                split: Optional[int] = None) -> LaunchPlan:
     """The launch plan of one launch, with the slots the card really holds
     for it, from the kernel library's occupancy query ``blocks_per_sm(
-    with_stats, nee, physical, count, split, max_depth)``."""
-    plan = launch_plan(n_pix, n_samples)
+    with_stats, nee, physical, count, split, max_depth)``. ``split`` is the
+    caller's threads per pixel, else :func:`launch_plan`'s."""
+    if split is None:
+        plan = launch_plan(n_pix, n_samples)
+    else:
+        px = BLOCK_THREADS // split
+        plan = LaunchPlan(split, px, -(-n_pix // px), PLAN_SLOTS)
     n = blocks_per_sm(int(with_stats), int(nee), int(physical), int(count), plan.split, int(max_depth))
     if n <= 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
@@ -345,10 +358,16 @@ def render_block_sweep(
     lights: Optional[LightTensors] = None,
     physical: bool = False,
     bounce_counts: Optional[torch.Tensor] = None,
+    split: Optional[int] = None,
 ) -> torch.Tensor:
     """Radiance sums over samples [s0, s0+n_samples) of rows
     ``row0 + k·row_stride``, ``(n_rows, img_w, 3)`` float32 on the scene's
-    device (``(n_rows, img_w, 4)`` with ``with_stats``). On the card,
+    device (``(n_rows, img_w, 4)`` with ``with_stats``); samples from
+    ``s_limit`` on add nothing. ``split`` (one of ``SPLITS``) sets the
+    launch's threads per pixel, on which the last bits of a pixel's sum
+    depend; by default :func:`launch_plan` picks it from the launch's
+    shape. A row shard passes the split of its unsharded band's launch
+    (``parallel/shard.py``). On the card,
     ``bounce_counts`` (optional contiguous int32 tensor) receives each
     pixel's counters summed over its samples: shape ``(n_rows·img_w,)``
     (bounces) for K1 and K2, ``(N_COUNTS, n_rows·img_w)`` with ``lights`` or
@@ -356,6 +375,7 @@ def render_block_sweep(
     from the counting instantiation, without ``with_stats``. The launch's
     :class:`LaunchPlan` is kept as ``render_block_sweep.last_plan``."""
     dev = scene.device
+    check_split(split)
     if scene.num_triangles:
         raise ValueError("the sweep megakernel takes no triangles; use render_block_scene")
     if dev.type == "cpu":
@@ -399,7 +419,7 @@ def render_block_sweep(
     packed_lights = None if lights is None else ctypes.byref(pack_lights(lights))
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
     plan = plan_launch(lib.flux_sweep_blocks_per_sm, dev, n_pix, n_samples, with_stats, lights is not None,
-                       physical, bounce_counts is not None, max_depth)
+                       physical, bounce_counts is not None, max_depth, split)
     with build.LAUNCH_LOCK, torch.cuda.device(dev):
         err = lib.flux_sweep_render(
             out.data_ptr(), counts_ptr, ctypes.byref(packed), packed_lights, int(with_stats),

@@ -35,7 +35,7 @@ from .constants import SALT_AA, SALT_BOUNCE, SALT_LENS, SALT_NEE, SALT_NEEPICK
 from .ops.intersect import Intersector, scan_layout, tri_layout
 from .ops.nee import LightTensors, extract_lights
 from .ops.shade import PathState, bounce
-from .ops.sweep_kernel import MAX_PLANES, MAX_SPHERES
+from .ops.sweep_kernel import MAX_PLANES, MAX_SPHERES, launch_plan
 from .samplers.hash import MASK, hash_combine, randfloat
 from .samplers.patterns import bounce_point, cmj_point
 from .samplers.warps import to_poisson_disc
@@ -134,11 +134,17 @@ def render_block(
             lights=lights, nee_samples=nee_samples, physical=physical,
         )
     rad = state.radiance
-    channels = [rad.x.sum(dim=0), rad.y.sum(dim=0), rad.z.sum(dim=0)]
+    channels = [rad.x, rad.y, rad.z]
     if with_stats:
         lum = luminance(rad)
-        channels.append((lum * lum).sum(dim=0))
-    return torch.stack(channels, dim=-1)
+        channels.append(lum * lum)
+    # The sum over samples runs along a contiguous innermost axis, so that
+    # a pixel's sum depends on its own samples alone: summed along the
+    # outer axis, PyTorch's CPU reduction adds a pixel's samples in another
+    # order where the pixel falls in the vectorized part of a row of lanes
+    # than at its end, and a row shard of a band would not be bit-equal to
+    # the band.
+    return torch.stack(channels, dim=-1).permute(1, 2, 3, 0).contiguous().sum(dim=-1)
 
 
 def finalize(acc: torch.Tensor, *, root: int) -> torch.Tensor:
@@ -261,19 +267,31 @@ class Renderer:
         return self.render_rows_sum_range(row0, n_rows, 0, self.root * self.root)
 
     def render_rows_sum_range(
-        self, row0: int, n_rows: int, s0: int, n_samples: int, with_stats: bool = False
+        self, row0: int, n_rows: int, s0: int, n_samples: int, with_stats: bool = False, *,
+        row_stride: int = 1, s_limit: Optional[int] = None, band_rows: Optional[int] = None,
     ) -> torch.Tensor:
         """Radiance sum over sample indices [s0, s0 + n_samples) for a row
         band, ``(n_rows, width, 3)`` on the renderer's device (a fourth
-        channel, Σ luminance², with ``with_stats``)."""
+        channel, Σ luminance², with ``with_stats``).
+
+        A row shard of a band (``parallel/shard.py``) passes the rest: its
+        rows are ``row0 + k·row_stride``, its samples from ``s_limit`` on
+        add nothing, and its launch is cut as that of the band of
+        ``band_rows`` rows over ``n_samples`` would be (the split on the
+        card, the sample chunks on the CPU), so that each of its pixels
+        sums its samples in the band's order and the band's bits come
+        back."""
         from .ops.scene_kernel import render_block_scene
         from .ops.sweep_kernel import render_block_sweep
 
         kernel, extra = render_block_sweep, {}
         if not self.uses_sweep_kernel:
             kernel, extra = render_block_scene, {"isect": self.isect}
+        band_rows = n_rows if band_rows is None else band_rows
+        if self.device.type == "cuda":
+            extra["split"] = launch_plan(band_rows * self.width, n_samples).split
         acc = None
-        for off, n in plan_chunks(n_samples, self._chunk_size(n_rows, n_samples)):
+        for off, n in plan_chunks(n_samples, self._chunk_size(band_rows, n_samples)):
             part = kernel(
                 self.scene,
                 self.cam,
@@ -286,6 +304,8 @@ class Renderer:
                 n_samples=n,
                 root=self.root,
                 max_depth=self.max_depth,
+                s_limit=s_limit,
+                row_stride=row_stride,
                 with_stats=with_stats,
                 lights=self.lights,
                 physical=self.physical,

@@ -5,13 +5,17 @@ The operations are those of the JAX package in the same order, including
 its sign-of-sin construction: ``sin`` is taken as ``±sqrt(1 - cos²)``
 with the sign read from the angle's range, one transcendental instead of
 two. ``cos`` and ``pow`` come from another math library than XLA's, so
-results agree with the JAX package to a few ulp, not bit for bit.
+results agree with the JAX package to a few ulp, not bit for bit; ``pow``
+is :func:`flux_tpu_torch.vec.pow32`, whose bits do not depend on the
+tensor's shape.
 """
 
 import numpy as np
 import torch
 
-__all__ = ["to_unit_hemi", "to_poisson_disc"]
+from ..vec import pow32
+
+__all__ = ["to_unit_hemi", "to_hemisphere", "to_poisson_disc"]
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
 _QUARTER_PI = float(np.float32(np.pi / 4.0))
@@ -27,9 +31,16 @@ def to_unit_hemi(x, y, e):
     sin_phi = torch.where(x < 0.5, 1.0, -1.0) * torch.sqrt(
         torch.clamp_min(1.0 - cos_phi * cos_phi, 0.0)
     )
-    cos_theta = torch.pow(torch.clamp_min(1.0 - y, 0.0), 1.0 / (e + 1.0))
+    cos_theta = pow32(torch.clamp_min(1.0 - y, 0.0), 1.0 / (e + 1.0))
     sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
     return sin_theta * cos_phi, sin_theta * sin_phi, cos_theta
+
+
+def to_hemisphere(points: torch.Tensor, e) -> torch.Tensor:
+    """Batch form: ``(N, 2)`` unit-square points to ``(N, 3)`` hemisphere
+    directions (lib.rs:129-131)."""
+    u, v, w = to_unit_hemi(points[..., 0], points[..., 1], e)
+    return torch.stack([u, v, w], dim=-1)
 
 
 def to_poisson_disc(x, y):

@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Vec3", "dot", "cross", "normalize", "where", "reflect", "frame_about", "div"]
+__all__ = ["Vec3", "dot", "cross", "normalize", "where", "reflect", "frame_about", "div", "pow32"]
 
 
 class Vec3(NamedTuple):
@@ -84,3 +84,14 @@ def div(a: torch.Tensor, b: float) -> torch.Tensor:
     ``a``'s device keeps the IEEE quotient that the sample points need to
     match the JAX package and the CUDA kernel bit for bit."""
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
+def pow32(a: torch.Tensor, b) -> torch.Tensor:
+    """float32 ``a ** b``, computed in float64 and rounded once. PyTorch's
+    float32 ``pow`` on the CPU takes one routine inside a vectorized run and
+    another for the run's last elements, which differ in the last ulp; so a
+    lane's bits would depend on where it falls in its tensor, i.e. on the
+    launch's shape. The float64 routines agree after the rounding, which
+    keeps a row band and its row shards (``parallel/shard.py``) bit-equal."""
+    b = b.to(torch.float64) if isinstance(b, torch.Tensor) else float(b)
+    return torch.pow(a.to(torch.float64), b).to(torch.float32)

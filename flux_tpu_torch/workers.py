@@ -1,10 +1,10 @@
 """Execution backends: the local worker and the network worker
 (``flux_tpu/workers.py``; fluxcore/src/workers.rs).
 
-``LocalWorker`` renders on this process's device, the CUDA card or the CPU
-(the rayon-pool replacement, workers.rs:25-88): per job it builds a
-renderer through its factory and pulls work units from the shared queue
-until it is drained. ``NetworkWorker`` proxies the same pull loop to a
+``LocalWorker`` renders on this process's devices, CUDA cards or the CPU
+(the rayon-pool replacement, workers.rs:25-88; several make a device
+mesh, ``parallel/``): per job it builds a renderer through its factory
+and pulls work units from the shared queue until it is drained. ``NetworkWorker`` proxies the same pull loop to a
 remote render node over TCP (workers.rs:105-243), keeping the reference's
 pipeline depth of 2 — two units are in flight before the first result is
 awaited (workers.rs:161-201) — so that the link and the remote card
@@ -41,20 +41,37 @@ class _NodeJobError(Exception):
     the lost units go to the manager's retry round."""
 
 
-def default_renderer_factory(job: Job, device=None, accel=None):
-    """The port's single-device :class:`~flux_tpu_torch.render.Renderer`
-    for ``job`` on ``device`` (the CUDA card unless the caller names the
-    CPU), with the job's sample root, depth, seed and estimator. Rendering
-    one job across several cards (``flux_tpu``'s ``MeshRenderer`` branch)
-    is not ported yet."""
+def default_renderer_factory(job: Job, device=None, accel=None, devices=None):
+    """The renderer for ``job`` with its sample root, depth, seed and
+    estimator: the port's single-device
+    :class:`~flux_tpu_torch.render.Renderer` on ``device`` (the CUDA card
+    unless the caller names the CPU), or, where ``devices`` lists more than
+    one, a :class:`~flux_tpu_torch.parallel.MeshRenderer` over them, its
+    shape picked from the frame (sample shards, rows where the frame is
+    tall; ``flux_tpu/workers.py``)."""
     from .render import Renderer
 
+    devs = list(devices) if devices is not None else [device]
+    if len(devs) > 1:
+        from .parallel import MeshRenderer, make_mesh
+
+        out = job.scene_data.output_settings
+        return MeshRenderer(
+            job.scene_data,
+            sample_root=job.config.sample_root,
+            max_depth=job.config.max_trace_depth,
+            seed=job.config.seed,
+            mesh=make_mesh(devs, rows_shards=None, n_rows_hint=out.image_height, n_cols_hint=out.image_width),
+            accel=accel,
+            nee=job.config.nee,
+            physical=job.config.physical,
+        )
     return Renderer(
         job.scene_data,
         sample_root=job.config.sample_root,
         max_depth=job.config.max_trace_depth,
         seed=job.config.seed,
-        device=device,
+        device=devs[0],
         accel=accel,
         nee=job.config.nee,
         physical=job.config.physical,
@@ -66,16 +83,18 @@ class LocalWorker:
     (workers.rs:25-88)."""
 
     def __init__(self, renderer_factory: Callable[[Job], object] = None, name="local",
-                 device=None):
-        """``device`` is the device the factory renders on, which ``info``
-        reports (the CUDA card unless the CPU is named); the default
-        factory is :func:`default_renderer_factory` on it."""
-        self.device = resolve_device(device)
+                 device=None, devices=None):
+        """``devices`` are the devices the factory renders on, which
+        ``info`` reports; by default ``[device]`` (the CUDA card unless the
+        CPU is named). The default factory is
+        :func:`default_renderer_factory` on them."""
+        self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
+        self.device = self.devices[0]
         if renderer_factory is None:
-            dev = self.device
+            kw = {"device": self.device} if len(self.devices) == 1 else {"devices": self.devices}
 
             def renderer_factory(job):
-                return default_renderer_factory(job, device=dev)
+                return default_renderer_factory(job, **kw)
 
         self._factory = renderer_factory
         self._requests: "queue.Queue" = queue.Queue()
@@ -101,9 +120,9 @@ class LocalWorker:
         return self._requests.qsize()
 
     def info(self) -> WorkerInfo:
-        """One device, the one the factory renders on: ``"cuda"`` or
-        ``"cpu"``."""
-        return WorkerInfo(num_devices=1, platform=self.device.type, description="local")
+        """The devices the factory renders on, and their type: ``"cuda"``
+        or ``"cpu"``."""
+        return WorkerInfo(num_devices=len(self.devices), platform=self.device.type, description="local")
 
     def _run(self) -> None:
         while True:

@@ -517,3 +517,41 @@ def test_device_sincosf_matches_cosf_and_sinf(card, tmp_path):
     assert run(xs.data_ptr(), out.data_ptr(), len(x)) == 0
     out = out.cpu()
     assert torch.equal(out[0], out[2]) and torch.equal(out[1], out[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, nee, physical, stats", [("demo2", False, False, False), ("demo3", True, True, True)])
+def test_strided_masked_launch_matches_plain(card, name, nee, physical, stats):
+    """A device mesh's launch (``parallel/shard.py``): rows ``row0 + k·4``
+    and a sample range cut by ``s_limit`` inside the launch, at a split the
+    caller gives (its band's), against the plain version at the gates
+    above; the masked samples add nothing (the launch equals the one that
+    stops at the limit, bitwise, at the same split); a row shard of a
+    16-row band whose own plan differs from the band's is the band's rows,
+    bitwise."""
+    from flux_tpu_torch.ops.sweep_kernel import launch_plan
+
+    sd = load_scene(os.path.join(SCENES, f"{name}.yml"))
+    sc, cam = _scene(card, name)
+    lights = extract_lights(sd, card) if nee else None
+    kw = dict(img_w=800, img_h=600, n_rows=4, root=5, max_depth=5, lights=lights, physical=physical,
+              with_stats=stats)
+    split = launch_plan(16 * 800, 13).split
+    k = render_block_sweep(sc, cam, 281, 7, 11, n_samples=13, s_limit=17, row_stride=4, split=split, **kw)
+    assert render_block_sweep.last_plan.split == split
+    stop = render_block_sweep(sc, cam, 281, 7, 11, n_samples=10, row_stride=4, split=split, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k.view(torch.int32), stop.view(torch.int32))
+    p = render_block(sc, cam, 281, 7, 11, n_samples=13, s_limit=17, row_stride=4, **kw)
+    assert torch.isclose(k, p, rtol=1e-4, atol=1e-5).float().mean() >= 0.99
+    fd = (finalize(k[..., :3], root=5) - finalize(p[..., :3], root=5)).abs()
+    assert fd.mean() < 1e-3 and (fd > 5e-3).float().mean() < 0.01
+    # The split hazard: the band's plan, not the shard's own.
+    assert launch_plan(16 * 800, 17).split != launch_plan(4 * 800, 17).split
+    band = render_block_sweep(sc, cam, 280, 0, 11, **{**kw, "n_rows": 16}, n_samples=17)
+    shard = render_block_sweep(sc, cam, 281, 0, 11, n_samples=17, row_stride=4,
+                               split=launch_plan(16 * 800, 17).split, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(shard.view(torch.int32), band[1::4].contiguous().view(torch.int32))
+    with pytest.raises(ValueError, match="split"):
+        render_block_sweep(sc, cam, 281, 0, 11, n_samples=4, split=12, **kw)
