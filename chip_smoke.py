@@ -195,7 +195,14 @@ Phases, in order; any failure exits non-zero before the result line:
    e. a node with ``-t 1`` serves demo2 byte-equal to phase 17's frame;
       ``sampler_debug`` on the card writes the CPU's eight files;
    f. each configuration as a (2,1) mesh launches it, timed beside its
-      bound and its plain version, for the kernels line.
+      bound and its plain version, for the kernels line;
+19. the repo-level entry points, each a subprocess from the checkout's root
+   as a user runs it, which must exit 0: ``python -m flux_tpu_torch.bench
+   --out`` a temporary directory (its seven cells present, none with an error,
+   every gate on the JAX package's stored results passed, nothing under
+   ``artifacts/`` changed), ``python -m flux_tpu_torch.perf --reps 3``
+   (demo2 at 16384 spp) and ``python -m flux_tpu_torch.mse_check --seeds
+   0``; prints the three JSON lines.
 
 Every phase prints its wall seconds. It ends with a ``{"kernels": [...]}``
 line (one entry per instantiation and configuration, and one per
@@ -227,7 +234,11 @@ import torch
 
 from flux_tpu_torch.camera import camera_tensors
 from flux_tpu_torch.checkpoint import ProgressiveRenderer, load_checkpoint
-from flux_tpu_torch import genscene, meshgen, native, sampler_debug, wire
+from flux_tpu_torch import bench, genscene, meshgen, native, sampler_debug, wire
+from flux_tpu_torch.artifacts import (
+    ADAPTIVE_P99, ADAPTIVE_P99_ATOL, ADAPTIVE_SPP, CORNELL_GATES, HEADLINE_GATES, MIS_MSE, MIS_MSE_RTOL, NEE_GATES,
+    SPHERES512_GATES, adaptive_gates, failed, frame_gates, frame_vs_png, mis_gates,
+)
 from flux_tpu_torch.cli import DEFAULT_ROWS_PER_UNIT, FailureLog, run as cli_run
 from flux_tpu_torch.image import Image, ppm_bytes, read_ppm
 from flux_tpu_torch.job import JobConfiguration
@@ -417,16 +428,10 @@ def phase_goldens(dev) -> None:
         check(abs(float(img.mean()) - float(golden.mean())) < 1e-3, f"golden {name}: mean shift")
 
 
-def png_levels(path: str) -> np.ndarray:
-    """An 8-bit PNG as int32 levels."""
-    from PIL import Image as PILImage
-
-    return np.asarray(PILImage.open(path), np.int32)
-
-
-def levels(img: np.ndarray) -> np.ndarray:
-    """A frame as 8-bit levels, rounded as the PNG writer rounds."""
-    return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.int32)
+def check_gates(gates: list, what: str) -> None:
+    """The JAX package's stored results' gates (flux_tpu_torch.artifacts)."""
+    bad = failed(gates)
+    check(not bad, f"{what}: {bad}")
 
 
 def phase_main_path(out_dir: str, card: str) -> dict:
@@ -457,20 +462,19 @@ def phase_main_path(out_dir: str, card: str) -> dict:
     samples = 800 * 600 * 128 * 128
     check(ran["samples"] == samples, f"the CLI rendered {ran['samples']} samples, not {samples}")
     # The JAX package's render of this frame and seed (bench.py), as 8-bit PNG.
-    d = np.abs(levels(img) - png_levels(os.path.join(HERE, "artifacts", "demo2_16384spp.png")))
+    vs = frame_vs_png(img, "demo2_16384spp.png")
     res = {
         "cli_seconds": seconds,
         "msamples_per_s": samples / seconds / 1e6,
         "band_loop_seconds": ran["band_seconds"],
         "band_loop_msamples_per_s": samples / ran["band_seconds"] / 1e6,
         "launches": launches,
-        "vs_jax_png_mean_abs_levels": float(d.mean()),
-        "vs_jax_png_max_abs_levels": int(d.max()),
-        "vs_jax_png_frac_over_2_levels": float((d > 2).mean()),
+        "vs_jax_png_mean_abs_levels": vs["mean_abs_levels"],
+        "vs_jax_png_max_abs_levels": vs["max_abs_levels"],
+        "vs_jax_png_frac_over_2_levels": vs["frac_over_2_levels"],
     }
     log(f"main path (cli demo2 800x600, 16384 spp, depth 5, seed 0) on {card}:", json.dumps(res))
-    check(res["vs_jax_png_mean_abs_levels"] < 0.5, "frame differs from the JAX render")
-    check(res["vs_jax_png_frac_over_2_levels"] < 0.01, "frame differs from the JAX render")
+    check_gates(frame_gates(vs, HEADLINE_GATES, "demo2_16384spp.png"), "frame differs from the JAX render")
     return res
 
 
@@ -563,12 +567,6 @@ def phase_measure(dev) -> dict:
     return measure_launch(dev, "demo2", row0=300, n_rows=50, n_samples=16384, root=128, frame=True)
 
 
-# The JAX package's estimator values on these paths (bench.py on a TPU,
-# artifacts/bench_extra.json): image statistics of bit-identical sample
-# streams, not speeds.
-ADAPTIVE_SPP, ADAPTIVE_P99 = 768, 0.11675
-MIS_MSE = 0.002073
-
 # Phase 7: (scene, nee, physical, stats) of each new instantiation's check.
 CONFIGS = [
     ("demo3", False, False, True),
@@ -612,8 +610,7 @@ def phase_paths(dev, out_dir: str) -> dict:
                 "launches": n}
     log("demo2 adaptive (cli -r 32 -d 5 --progressive 64 --adaptive 0.12):", json.dumps(adaptive))
     check(set(n) == {"sweep+stats"}, "demo2 adaptive: not all launches were the stats kernel")
-    check(ran["spp_done"] == ADAPTIVE_SPP, f"demo2 adaptive stopped at {ran['spp_done']}, not {ADAPTIVE_SPP} spp")
-    check(abs(ran["p99_rel_stderr"] - ADAPTIVE_P99) <= 5e-4, "demo2 adaptive: p99 rel stderr off by > 5e-4")
+    check_gates(adaptive_gates(ran["spp_done"], ran["p99_rel_stderr"]), "demo2 adaptive")
     launches.update(n)
 
     # b. demo2 NEE against the 16384-spp reference-transport frame.
@@ -621,13 +618,13 @@ def phase_paths(dev, out_dir: str) -> dict:
         [demo2, "-r", "32", "-d", "5", "--nee", "--seed", "0", "--output-dir", os.path.join(out_dir, "nee")]))
     img = read_ppm(ran["out"])
     check(img.shape == (600, 800, 3) and np.isfinite(img).all(), "demo2 nee: bad PPM")
-    d = np.abs(levels(img) - png_levels(os.path.join(HERE, "artifacts", "demo2_16384spp.png")))
+    vs = frame_vs_png(img, "demo2_16384spp.png")
     nee = {"seconds": secs, "band_loop_seconds": ran["band_seconds"], "launches": n,
-           "vs_16384spp_png_mean_abs_levels": float(d.mean()),
-           "vs_16384spp_png_frac_over_8_levels": float((d > 8).mean())}
+           "vs_16384spp_png_mean_abs_levels": vs["mean_abs_levels"],
+           "vs_16384spp_png_frac_over_8_levels": vs["frac_over_8_levels"]}
     log("demo2 nee (cli -r 32 -d 5 --nee) vs the 16384-spp frame:", json.dumps(nee))
     check(set(n) == {"sweep+nee"}, "demo2 nee: not all launches were the NEE kernel")
-    check(nee["vs_16384spp_png_mean_abs_levels"] < 3.0, "demo2 nee: frame far from the reference frame")
+    check_gates(frame_gates(vs, NEE_GATES, "demo2_16384spp.png"), "demo2 nee: frame far from the reference frame")
     launches.update(n)
 
     # c. demo3 physical MIS: 16 spp against a 1024-spp truth.
@@ -644,7 +641,7 @@ def phase_paths(dev, out_dir: str) -> dict:
                "rel_diff": mse / MIS_MSE - 1.0}
     log("demo3 physical MIS (16 spp seed 0 vs 1024 spp seed 7):", json.dumps(mis_res))
     check(set(n) == {"sweep+nee+physical"}, "demo3 mis: not all launches were the MIS kernel")
-    check(abs(mse / MIS_MSE - 1.0) <= 0.02, "demo3 mis: MSE more than 2% off the JAX package's")
+    check_gates(mis_gates(mse), "demo3 mis: MSE more than 2% off the JAX package's")
     launches.update(n)
 
     # d. demo3 physical transport without NEE, against the MIS truth.
@@ -968,14 +965,6 @@ def phase_scan_equals_sweep(dev) -> None:
             check(res["non_finite_values"] <= 0.001 * a.numel(), "scan vs sweep: too many non-finite sums")
 
 
-def frame_vs_png(img: np.ndarray, png: str) -> dict:
-    signed = levels(img) - png_levels(os.path.join(HERE, "artifacts", png))
-    d = np.abs(signed)
-    return {"mean_abs_levels": float(d.mean()), "mean_signed_levels": float(signed.mean()),
-            "max_abs_levels": int(d.max()),
-            "frac_over_2_levels": float((d > 2).mean()), "frac_over_8_levels": float((d > 8).mean())}
-
-
 def cli_path(label, argv, out_dir, expect, size) -> tuple:
     """One path through cli.run: its result, launches and seconds; the PPM
     must be whole and every launch of the expected configuration."""
@@ -1010,9 +999,8 @@ def phase_scene_paths(dev, out_dir: str, card: str) -> dict:
     # held on the CPU, sample by sample against the float64 oracle
     # (tests/test_torch_scan.py), and here by phase 13, which holds rows of
     # this path's own launch against the plain version.
-    check(res["vs_jax_png"]["mean_abs_levels"] < 3.0, "spheres512: frame differs from the JAX render")
-    check(abs(res["vs_jax_png"]["mean_signed_levels"]) < 0.3, "spheres512: frame brighter or darker than the JAX render")
-    check(res["vs_jax_png"]["frac_over_8_levels"] < 0.05, "spheres512: frame differs from the JAX render")
+    check_gates(frame_gates(res["vs_jax_png"], SPHERES512_GATES, "spheres512_64spp.png"),
+                "spheres512: frame differs from the JAX render")
     # b. Meshes: icosphere(3) in mesh_scene (1280 triangles) through the Renderer, mesh_ico.yml through the CLI.
     def mesh1280():
         r = Renderer(meshgen.mesh_scene(*meshgen.icosphere(3)), 4, 5, seed=0, device=dev)
@@ -1037,7 +1025,8 @@ def phase_scene_paths(dev, out_dir: str, card: str) -> dict:
     # The JAX package's frame of this scene at 2304 spp (another sample count: a loose gate).
     res["vs_jax_2304spp_png"] = frame_vs_png(img, "demo5_cornell_2304spp.png")
     note("demo5 (cli -r 32 -d 5 --nee, 512x512, 1024 spp)", res)
-    check(res["vs_jax_2304spp_png"]["mean_abs_levels"] < 3.0, "demo5: frame far from the JAX render")
+    check_gates(frame_gates(res["vs_jax_2304spp_png"], CORNELL_GATES, "demo5_cornell_2304spp.png"),
+                "demo5: frame far from the JAX render")
     # d. Short renders that take the other configurations.
     for label, argv, expect, size in (
         ("spheres512 nee", [scene("spheres512"), "-r", "4", "-d", "5", "--nee"], "scan+nee", (800, 600)),
@@ -2172,7 +2161,7 @@ def phase_mesh_progressive(dev, out_dir: str, mis_mse: float) -> dict:
                        "seconds": secs, "launches": n}
     check(set(n) == {"sweep+stats"}, f"adaptive mesh: launches {n}")
     check(mesh.samples_done == one.samples_done == ADAPTIVE_SPP, f"adaptive mesh stopped at {mesh.samples_done}")
-    check(errm == err1 and abs(errm - ADAPTIVE_P99) <= 5e-4, f"adaptive mesh p99 {errm} vs one card {err1}")
+    check(errm == err1 and abs(errm - ADAPTIVE_P99) <= ADAPTIVE_P99_ATOL, f"adaptive mesh p99 {errm} vs one card {err1}")
     check(bitwise(mesh.acc, one.acc) and bitwise(mesh.lum_sq, one.lum_sq), "adaptive mesh: sums differ")
     launches.update(n)
 
@@ -2186,7 +2175,7 @@ def phase_mesh_progressive(dev, out_dir: str, mis_mse: float) -> dict:
     mse = float(((img16 - truth) ** 2).mean())
     res["mis"] = {"mse_16spp_vs_1024spp": mse, "one_card_mse": mis_mse, "seconds": secs, "launches": n}
     check(set(n) == {"sweep+nee+physical"}, f"MIS mesh: launches {n}")
-    check(mse == mis_mse and abs(mse / MIS_MSE - 1.0) <= 0.02, f"MIS mesh MSE {mse}, one card {mis_mse}")
+    check(mse == mis_mse and abs(mse / MIS_MSE - 1.0) <= MIS_MSE_RTOL, f"MIS mesh MSE {mse}, one card {mis_mse}")
     launches.update(n)
 
     # Checkpoints: demo3 MIS + stats at root 8, passes of 16, both ways.
@@ -2376,6 +2365,55 @@ def mesh_kernel_entries(dev, main_launches: dict, path_launches: dict, checks: d
     return entries
 
 
+# ---- phase 19: the bench, perf and mse_check -----------------------------------
+
+
+def entry_point(argv: list, timeout: int) -> tuple:
+    """``python -m`` ``argv`` from the checkout's root: the last line of its
+    standard output as JSON, and its seconds; it must exit 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=HERE, capture_output=True, text=True,
+                          timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:], proc.stderr[-8000:])
+    check(proc.returncode == 0, f"python -m {' '.join(argv)} exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    check(bool(lines), f"python -m {' '.join(argv)} printed nothing")
+    return json.loads(lines[-1]), seconds
+
+
+def stored_digests() -> dict:
+    """sha256 of every file of artifacts/ but the XLA cache (the JAX
+    package's stored results)."""
+    root = os.path.join(HERE, "artifacts")
+    return {name: hashlib.sha256(open(os.path.join(root, name), "rb").read()).hexdigest()
+            for name in sorted(os.listdir(root)) if os.path.isfile(os.path.join(root, name))}
+
+
+def phase_entry_points(out_dir: str, card: str) -> dict:
+    """Phase 19: the bench, the warm-process perf harness and the MSE check."""
+    before = stored_digests()
+    line, secs = entry_point(["flux_tpu_torch.bench", "--out", out_dir], 900)
+    log(f"bench (python -m flux_tpu_torch.bench, {secs:.1f} s with the process's start):", json.dumps(line))
+    check(stored_digests() == before, "the bench changed a file under artifacts/")
+    check(line["metric"] == bench.HEADLINE and line["devices"] == 1 and line["card"] == card,
+          f"bench: the line's metric, devices or card: {line['metric']}, {line['devices']}, {line['card']}")
+    cells = {bench.HEADLINE: line, **line["extra"]}
+    check(set(cells) == set(bench.CELLS), f"bench: cells {sorted(cells)}")
+    for name, entry in cells.items():
+        check("error" not in entry, f"bench cell {name}: {entry.get('error')}")
+        check(isinstance(entry["gates"], list) and len(entry["gates"]) > 1, f"bench cell {name}: no gates")
+        check_gates(entry["gates"], f"bench cell {name}")
+    perf, perf_s = entry_point(["flux_tpu_torch.perf", "--reps", "3"], 600)
+    log(f"perf (python -m flux_tpu_torch.perf --reps 3, demo2 16384 spp, {perf_s:.1f} s):", json.dumps(perf))
+    check(len(perf["times"]) == 3 and perf["card"] == card and perf["checksum"] > 0, "perf: bad line")
+    mse, mse_s = entry_point(["flux_tpu_torch.mse_check", "--seeds", "0"], 600)
+    log(f"mse_check (python -m flux_tpu_torch.mse_check --seeds 0, {mse_s:.1f} s):", json.dumps(mse))
+    check(mse["spp"] == 256 and len(mse["mse_per_seed"]) == 1 and 0 < mse["mse_mean"] < 1, "mse_check: bad line")
+    return {"bench": line, "perf": perf, "mse_check": mse}
+
+
 def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
                  source: str = "flux_tpu_torch/csrc/sweep_megakernel.cu") -> dict:
     return {
@@ -2513,6 +2551,8 @@ def main(argv=None) -> int:
         with phase_timer("18 f the mesh launches measured"):
             kernels += mesh_kernel_entries(dev, mesh_main["result"]["meshes"]["2x1"]["launches"],
                                            mesh_paths["launches"], mesh_checks)
+    with phase_timer("19 the bench, perf and mse_check"), tempfile.TemporaryDirectory() as tmp:
+        phase_entry_points(tmp, card)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

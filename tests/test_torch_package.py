@@ -17,7 +17,7 @@ import yaml
 
 from flux_tpu.image import ppm_bytes as j_ppm_bytes
 from flux_tpu.scene import load_scene as j_load_scene
-from flux_tpu_torch import cli, genscene
+from flux_tpu_torch import bench, cli, genscene, mse_check, perf
 from flux_tpu_torch.camera import camera_tensors
 from flux_tpu_torch.ops import build, scene_kernel
 from flux_tpu_torch.ops.scene_kernel import render_block_scene
@@ -43,6 +43,8 @@ def test_import_boundary_in_a_fresh_process():
         "             or m == 'flux_tpu' or m.startswith('flux_tpu.'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
+        "new = {'flux_tpu_torch.' + m for m in ('artifacts', 'bench', 'perf', 'mse_check')}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -73,8 +75,9 @@ def _tiny_scene(tmp_path, w=16, h=12):
 
 
 def test_entry_points_need_the_card_by_default(tmp_path):
-    """Renderer() and the CLI pick CUDA and raise when it is absent; they
-    never carry on silently on the CPU."""
+    """Renderer(), the CLI, the bench, the perf harness and the MSE check
+    pick CUDA and raise when it is absent; they never carry on silently on
+    the CPU, and write nothing."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     sd = load_scene(str(_tiny_scene(tmp_path)))
@@ -83,6 +86,11 @@ def test_entry_points_need_the_card_by_default(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main([str(_tiny_scene(tmp_path)), "--output-dir", str(tmp_path)])
     assert not (tmp_path / "demo2.ppm").exists()
+    for main, argv in ((bench.main, ["--out", str(tmp_path / "bench")]), (perf.main, ["--root", "1"]),
+                       (mse_check.main, ["--root", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    assert not (tmp_path / "bench").exists()
 
 
 def _with_triangle(sd, kind):
@@ -161,6 +169,7 @@ def test_package_ships_every_kernel_source_and_the_cli():
         assert (REPO / "flux_tpu_torch" / f).is_file(), f
         assert any(fnmatch.fnmatch(f, g) for g in globs), f"{f} is not package data"
     assert meta["project"]["scripts"]["flux-tpu-torch"] == "flux_tpu_torch.cli:main"
+    assert meta["project"]["scripts"]["flux-tpu-torch-genscene"] == "flux_tpu_torch.genscene:main"
     assert build.BUILD_DIR == REPO / "build" / "flux_tpu_torch"
 
 
