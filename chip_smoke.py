@@ -202,7 +202,31 @@ Phases, in order; any failure exits non-zero before the result line:
    every gate on the JAX package's stored results passed, nothing under
    ``artifacts/`` changed), ``python -m flux_tpu_torch.perf --reps 3``
    (demo2 at 16384 spp) and ``python -m flux_tpu_torch.mse_check --seeds
-   0``; prints the three JSON lines.
+   0``; prints the three JSON lines;
+20. the f64 audit: every configuration (the 18 rows of PERF.md §6) at its
+   scene's full frame, depth 5, seed 0, through ``Renderer.render_rows_sum_range
+   (0, H, s, 1)`` (one launch a sample index, with stats for the stats rows;
+   the launch counts must be one a sample, all of the row's configuration),
+   sample by sample against ``flux_tpu_torch.oracle.oracle_render(...,
+   raw_samples=True)`` on the card (the whole frame one band; its seconds
+   and peak memory): K1-K4 rows on demo2 and demo3 at 800x600, root 4; the
+   scan rows on spheres512 and the triangle rows on mesh1280 and mesh_ico
+   at 800x600, root 2; K7 on demo5 at 512x512, root 4, its other rows root
+   2. Gates, each row: a. the kernel off the oracle (``off_oracle``:
+   beyond 1e-3·max(1, |oracle|), or not finite) on at most 1% of its
+   samples; b. on one 8-row band (rows 296-303 of a 600-row frame, the
+   middle 8 otherwise) the plain version's samples and the kernel's pass
+   ``oracle.adjudicate`` with no unadjudicated flip; c. with stats, each
+   launch's fourth channel the luminance² of its radiance at rtol 1e-6.
+   Then d. the oracle on the card against the oracle on the CPU, demo3
+   (NEE, physical) and demo5 (NEE) at 80x60, root 2, every value within
+   1e-9·max(1, |value|); e. ``precision_audit`` through the kernels at
+   tests/test_oracle.py's gates (mean |diff| < 5e-3, |f32 mean − f64 mean|
+   < 2e-3) on demo2 at 800x600 root 4, that file's Phong exponent 1e5
+   scene and its two mirrors at depth 16; f. ``python -m
+   flux_tpu_torch.f64_audit scenes/demo2.yml --root 4`` exits 0 and prints
+   e's demo2 report. Each row's numbers go into its entry of the kernels
+   line as ``f64_audit``.
 
 Every phase prints its wall seconds. It ends with a ``{"kernels": [...]}``
 line (one entry per instantiation and configuration, and one per
@@ -233,6 +257,7 @@ import numpy as np
 import torch
 
 from flux_tpu_torch.camera import camera_tensors
+from flux_tpu_torch.color import luminance, max_to_one
 from flux_tpu_torch.checkpoint import ProgressiveRenderer, load_checkpoint
 from flux_tpu_torch import bench, genscene, meshgen, native, sampler_debug, wire
 from flux_tpu_torch.artifacts import (
@@ -248,6 +273,7 @@ from flux_tpu_torch.ops.intersect import SCAN_BLOCK, Intersector, scan_layout, t
 from flux_tpu_torch.ops.nee import extract_lights
 from flux_tpu_torch.ops.scene_kernel import render_block_scene
 from flux_tpu_torch.ops import sweep_kernel
+from flux_tpu_torch.oracle import adjudicate, off_oracle, oracle_render, precision_audit
 from flux_tpu_torch.ops.sweep_kernel import (
     FluxLights,
     FluxScene,
@@ -260,7 +286,10 @@ from flux_tpu_torch.ops.sweep_kernel import (
 )
 from flux_tpu_torch.parallel import MeshRenderer, init_multihost, make_mesh, slot_launch
 from flux_tpu_torch.render import Renderer, finalize, plan_chunks, render_block
-from flux_tpu_torch.scene import compile_scene, load_scene
+from flux_tpu_torch.scene import (
+    CameraData, CameraSettings, MaterialData, MaterialKind, OutputSettings, SceneData, SphereData, compile_scene,
+    load_scene,
+)
 from flux_tpu_torch.workers import LocalWorker
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -2414,6 +2443,216 @@ def phase_entry_points(out_dir: str, card: str) -> dict:
     return {"bench": line, "perf": perf, "mse_check": mse}
 
 
+# ---- phase 20: the f64 audit ----------------------------------------------------
+
+# Configuration -> (scene, root); depth 5, seed 0, the scene's full frame,
+# NEE and physical transport as the configuration names them.
+AUDIT = [
+    ("sweep", "demo2", 4), ("sweep+stats", "demo2", 4),
+    ("sweep+nee", "demo2", 4), ("sweep+nee+stats", "demo2", 4),
+    ("sweep+physical", "demo3", 4), ("sweep+physical+stats", "demo3", 4),
+    ("sweep+nee+physical", "demo3", 4), ("sweep+nee+physical+stats", "demo3", 4),
+    ("scan", "spheres512", 2), ("scan+stats", "spheres512", 2), ("scan+nee", "spheres512", 2),
+    ("sweep+tri", "mesh1280", 2),
+    ("sweep+tri+physical", "mesh_ico", 2), ("sweep+tri+physical+stats", "mesh_ico", 2),
+    ("sweep+tri+nee+trilight", "demo5", 4), ("sweep+tri+nee+trilight+stats", "demo5", 2),
+    ("sweep+tri+nee+trilight+physical", "demo5", 2), ("sweep+tri+nee+trilight+physical+stats", "demo5", 2),
+]
+AUDIT_DEPTH, AUDIT_SEED = 5, 0
+# tests/test_oracle.py's gates on a precision audit.
+AUDIT_MEAN_ABS, AUDIT_MEAN_SHIFT = 5e-3, 2e-3
+
+
+def timed_oracle(dev, sd, root: int, nee: bool, physical: bool) -> tuple:
+    """A whole frame's per-sample radiance from the oracle on ``dev``, one
+    band; its seconds and its peak device memory (GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    oz = oracle_render(sd, root, AUDIT_DEPTH, seed=AUDIT_SEED, nee=nee, physical=physical, raw_samples=True,
+                       rows_per_band=sd.output_settings.image_height, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+    return oz, time.perf_counter() - t0, peak
+
+
+def audit_row(dev, cfg: str, scene: str, root: int, oracles: dict) -> tuple:
+    """Gates a-c of phase 20 on one configuration: the name of its entry in
+    the kernels line, and its numbers. ``oracles`` keeps the last oracle
+    frame, which the next rows of the same scene and estimator share."""
+    nee, physical, stats = "+nee" in cfg, "+physical" in cfg, cfg.endswith("+stats")
+    sd = scene_by_name(scene)
+    r = Renderer(sd, root, AUDIT_DEPTH, seed=AUDIT_SEED, device=dev, nee=nee, physical=physical)
+    W, H, spp = r.width, r.height, root * root
+    key = (scene, root, nee, physical)
+    if key not in oracles:
+        oracles.clear()
+        oracles[key] = timed_oracle(dev, sd, root, nee, physical)
+        fresh = True
+    else:
+        fresh = False
+    oz, oracle_s, peak = oracles[key]
+
+    # a. the kernel, one launch a sample index, against the oracle
+    render_block_sweep.launches.clear()
+    render_block_scene.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k = torch.stack([r.render_rows_sum_range(0, H, s, 1, with_stats=stats) for s in range(spp)])
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = {**render_block_sweep.launches, **render_block_scene.launches}
+    check(launches == {cfg: spp}, f"f64 audit {cfg}: launches {launches}, not {spp} of {cfg}")
+    bad = off_oracle(k[..., :3], oz)
+    budget = int(0.01 * bad.numel())
+    f32, f64 = finalize(k.sum(dim=0)[..., :3], root=root).to(torch.float64), max_to_one(oz.mean(dim=0))
+    res = {
+        "scene": scene, "frame": f"{W}x{H}", "spp": spp, "samples": bad.numel(), "bad_kernel": int(bad.sum()),
+        "nans_kernel": int((~torch.isfinite(k[..., :3])).any(dim=-1).sum()), "budget": budget,
+        "frame_mean_abs_diff": float((f32 - f64).abs().mean()), "f32_mean": float(f32.mean()),
+        "f64_mean": float(f64.mean()), "oracle_s": oracle_s, "oracle_shared": not fresh,
+        "oracle_peak_gib": peak, "kernel_s": kernel_s,
+    }
+
+    # b. the plain version on an 8-row band, adjudicated against the kernel
+    b0 = 296 if H == 600 else H // 2 - 4
+    kw = dict(img_w=W, img_h=H, n_rows=8, n_samples=1, root=root, max_depth=AUDIT_DEPTH, lights=r.lights,
+              physical=physical, with_stats=stats)
+    if not r.uses_sweep_kernel:
+        kw["isect"] = r.isect
+    t0 = time.perf_counter()
+    plain = torch.stack([render_block(r.scene, r.cam, b0, s, r.seed, **kw) for s in range(spp)])
+    torch.cuda.synchronize()
+    band = adjudicate(k[:, b0:b0 + 8, :, :3], plain[..., :3], oz[:, b0:b0 + 8])
+    names = {"bad_a": "bad_kernel", "bad_b": "bad_plain", "nan_a": "nans_kernel", "nan_b": "nans_plain"}
+    res["band"] = {"rows": [b0, b0 + 8], "plain_s": time.perf_counter() - t0,
+                   **{names.get(n, n): v for n, v in band.items()}}
+
+    # c. the stats channel: each launch's Σ luminance² is its own sample's,
+    # at rtol 1e-6; a luminance² below float32's smallest normal number
+    # (1.18e-38: a sample of radiance about 1e-19) is held to that absolute
+    # bound, since float32 cannot keep 1e-6 of it
+    if stats:
+        lum2 = luminance(k[..., :3].to(torch.float64)) ** 2
+        k3 = k[..., 3].to(torch.float64)
+        tiny = torch.finfo(torch.float32).tiny
+        close = torch.isclose(k3, lum2, rtol=1e-6, atol=tiny, equal_nan=True)
+        normal = lum2 >= tiny
+        res["stats_channel_consistent"] = bool(close.all())
+        rel = torch.where(normal, (k3 - lum2).abs() / lum2, 0.0).nan_to_num(0.0)
+        res["stats_channel_max_rel_diff"] = float(rel.max())
+        res["stats_channel_subnormal"] = int((~normal & (lum2 > 0)).sum())
+        if not res["stats_channel_consistent"]:
+            at = torch.nonzero(~close)[:5]
+            log(f"f64 audit {cfg}: Σ luminance² off at", at.tolist(),
+                [(k[tuple(i)].tolist(), float(lum2[tuple(i)])) for i in at])
+
+    log(f"f64 audit {cfg} ({scene} {W}x{H}, {spp} spp, depth 5, seed 0):", json.dumps(res))
+    check(res["bad_kernel"] <= budget, f"f64 audit {cfg}: {res['bad_kernel']} samples off the oracle, budget {budget}")
+    check(band["ok"] and band["unadjudicated"] == 0, f"f64 audit {cfg}: the band's adjudication failed: {band}")
+    if stats:
+        check(res["stats_channel_consistent"], f"f64 audit {cfg}: Σ luminance² is not the sample's luminance²")
+    if r.uses_sweep_kernel:
+        return ("sweep_megakernel" if cfg == "sweep" else f"sweep_megakernel[{cfg}]"), res
+    return f"scene_megakernel[{cfg}]", res
+
+
+def audit_scenes() -> dict:
+    """tests/test_oracle.py's adversarial audits as the port's SceneData:
+    the Phong exponent 1e5 sphere (24x18, root 8) and two facing mirrors
+    walked 16 bounces (16x12, root 4), each in an emissive environment
+    sphere, seed 1; the audit's arguments beside each."""
+    def scene(shapes, w, h):
+        return SceneData(
+            scene_name="test", output_settings=OutputSettings(image_width=w, image_height=h, pixel_size=0.5),
+            background=(0.0, 0.0, 0.0), shapes=tuple(shapes),
+            camera_settings=CameraSettings(eye=(0.0, 1.0, -9.0), look_at=(0.0, 1.0, 0.0), up=(0.0, 1.0, 0.0)),
+            camera_data=CameraData(zoom_factor=1.0, view_plane_distance=500.0, focal_distance=10.0, lens_radius=0.0),
+        )
+
+    def env(power):
+        return SphereData(center=(0.0, 0.0, 0.0), radius=100.0, invert=True,
+                          material=MaterialData(kind=MaterialKind.EMISSIVE, color=(1.0, 0.9686, 0.8588), param=power))
+
+    def sphere(center, radius, kind, color, param, exponent=0.0):
+        return SphereData(center=center, radius=radius,
+                          material=MaterialData(kind=kind, color=color, param=param, exponent=exponent))
+
+    glossy = sphere((0.0, 1.0, 0.0), 1.2, MaterialKind.GLOSSY, (0.9, 0.85, 0.8), 0.9, exponent=1e5)
+    mirrors = [sphere((0.0, 1.0, 2.6), 1.0, MaterialKind.REFLECTIVE, (0.97, 0.96, 0.95), 0.95),
+               sphere((0.0, 1.0, -2.6), 1.0, MaterialKind.REFLECTIVE, (0.95, 0.96, 0.97), 0.95)]
+    return {
+        "extreme exponent (Phong 1e5), 24x18": (scene([env(1.0), glossy], 24, 18), 8, 5),
+        "two mirrors, depth 16, 16x12": (scene([env(0.8), *mirrors], 16, 12), 4, 16),
+    }
+
+
+def phase_f64_audit(dev, kernels: list) -> dict:
+    """Phase 20: every row against the float64 oracle (gates a-c), the
+    card's oracle against the CPU's (d), the precision audit through the
+    kernels (e) and its CLI (f). Adds each row's numbers to its entry of
+    ``kernels`` as ``f64_audit``."""
+    t_phase = time.perf_counter()
+    by_cfg = {e["name"]: e for e in kernels}
+    oracles, rows = {}, {}
+    for cfg, scene, root in AUDIT:
+        name, rows[cfg] = audit_row(dev, cfg, scene, root, oracles)
+        check(name in by_cfg, f"f64 audit: no kernels entry {name}")
+        by_cfg[name]["f64_audit"] = rows[cfg]
+    oracles.clear()
+    oracle_s = sum(row["oracle_s"] for row in rows.values() if not row["oracle_shared"])
+
+    # d. the card's oracle against the CPU's
+    for name, nee, physical in (("demo3", True, True), ("demo5", True, False)):
+        sd = scene_small(name)
+        card, secs, _ = timed_oracle(dev, sd, 2, nee, physical)
+        cpu, cpu_s, _ = timed_oracle(torch.device("cpu"), sd, 2, nee, physical)
+        oracle_s += secs
+        diff = (card.cpu() - cpu).abs()
+        over = ~(diff <= 1e-9 * cpu.abs().clamp_min(1.0))
+        log(f"f64 audit d, the oracle on the card against the CPU ({name} 80x60, root 2, nee {nee}, physical "
+            f"{physical}): max |diff| {float(diff.max()):.3e}, values over 1e-9·max(1, |value|) {int(over.sum())} "
+            f"of {over.numel()}, equal bits {float((card.cpu() == cpu).double().mean()):.6f}, card {secs:.2f} s, "
+            f"CPU {cpu_s:.2f} s")
+        check(bool(torch.isfinite(cpu).all()) and not bool(over.any()),
+              f"f64 audit d: the card's oracle differs from the CPU's on {name}")
+
+    # e. the precision audit through the kernels
+    cases = {"demo2 800x600, root 4": (stock("demo2"), 4, 5, 0), **{
+        label: (sd, root, depth, 1) for label, (sd, root, depth) in audit_scenes().items()}}
+    reports = {}
+    for label, (sd, root, depth, seed) in cases.items():
+        render_block_sweep.launches.clear()
+        t0 = time.perf_counter()
+        rep = precision_audit(sd, root, depth, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        reports[label] = rep
+        log(f"f64 audit e, precision_audit ({label}, depth {depth}, seed {seed}; {time.perf_counter() - t0:.2f} s, "
+            f"launches {json.dumps(dict(render_block_sweep.launches))}):", json.dumps(rep))
+        check(render_block_sweep.launches.total() > 0, f"precision_audit ({label}) launched no kernel")
+        check(rep["mean_abs_diff"] < AUDIT_MEAN_ABS and abs(rep["f32_mean"] - rep["f64_mean"]) < AUDIT_MEAN_SHIFT,
+              f"precision_audit ({label}) misses tests/test_oracle.py's gates: {rep}")
+
+    # f. the CLI, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "flux_tpu_torch.f64_audit", "scenes/demo2.yml", "--root", "4"],
+                          cwd=HERE, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:], proc.stderr[-8000:])
+    check(proc.returncode == 0, f"python -m flux_tpu_torch.f64_audit exited {proc.returncode}")
+    cli_rep = json.loads(proc.stdout)
+    log(f"f64 audit f, python -m flux_tpu_torch.f64_audit scenes/demo2.yml --root 4 "
+        f"({time.perf_counter() - t0:.1f} s with the process's start):", json.dumps(cli_rep))
+    want = reports["demo2 800x600, root 4"]
+    check(set(cli_rep) == set(want) and all(np.isclose(cli_rep[k], want[k], rtol=1e-9, atol=0) for k in want),
+          f"f64_audit's report {cli_rep} is not e's {want}")
+
+    seconds = time.perf_counter() - t_phase
+    log(f"f64 audit: {len(rows)} rows, {seconds:.1f} s, of which the oracle on the card {oracle_s:.1f} s "
+        f"({oracle_s / seconds:.1%})")
+    return {"rows": rows, "audits": reports, "seconds": seconds, "oracle_s": oracle_s}
+
+
 def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
                  source: str = "flux_tpu_torch/csrc/sweep_megakernel.cu") -> dict:
     return {
@@ -2553,6 +2792,8 @@ def main(argv=None) -> int:
                                            mesh_paths["launches"], mesh_checks)
     with phase_timer("19 the bench, perf and mse_check"), tempfile.TemporaryDirectory() as tmp:
         phase_entry_points(tmp, card)
+    with phase_timer("20 the f64 audit"):
+        phase_f64_audit(dev, kernels)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -17,7 +17,7 @@ import yaml
 
 from flux_tpu.image import ppm_bytes as j_ppm_bytes
 from flux_tpu.scene import load_scene as j_load_scene
-from flux_tpu_torch import bench, cli, genscene, mse_check, perf
+from flux_tpu_torch import bench, cli, f64_audit, genscene, mse_check, oracle, perf
 from flux_tpu_torch.camera import camera_tensors
 from flux_tpu_torch.ops import build, scene_kernel
 from flux_tpu_torch.ops.scene_kernel import render_block_scene
@@ -43,8 +43,27 @@ def test_import_boundary_in_a_fresh_process():
         "             or m == 'flux_tpu' or m.startswith('flux_tpu.'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
-        "new = {'flux_tpu_torch.' + m for m in ('artifacts', 'bench', 'perf', 'mse_check')}\n"
+        "new = {'flux_tpu_torch.' + m for m in ('artifacts', 'bench', 'perf', 'mse_check', 'oracle', 'f64_audit')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_oracle_imports_none_of_what_it_judges():
+    """flux_tpu_torch.oracle, the float64 judge, loads none of the float32
+    path's modules: not the samplers, the intersection, the shading, NEE or
+    the renderer (the frame-epsilon pin reads ops/brdf.py's source)."""
+    code = (
+        "import sys\n"
+        "import flux_tpu_torch.oracle\n"
+        "judged = ('samplers', 'ops.intersect', 'ops.shade', 'ops.nee', 'render')\n"
+        "bad = sorted(m for m in sys.modules if any(m == 'flux_tpu_torch.' + j\n"
+        "             or m.startswith('flux_tpu_torch.' + j + '.') for j in judged))\n"
+        "assert not bad, bad\n"
+        "assert 'flux_tpu_torch.constants' in sys.modules and 'flux_tpu_torch.scene' in sys.modules\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -75,9 +94,9 @@ def _tiny_scene(tmp_path, w=16, h=12):
 
 
 def test_entry_points_need_the_card_by_default(tmp_path):
-    """Renderer(), the CLI, the bench, the perf harness and the MSE check
-    pick CUDA and raise when it is absent; they never carry on silently on
-    the CPU, and write nothing."""
+    """Renderer(), the CLI, the bench, the perf harness, the MSE check, the
+    float64 oracle and the precision audit pick CUDA and raise when it is
+    absent; they never carry on silently on the CPU, and write nothing."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     sd = load_scene(str(_tiny_scene(tmp_path)))
@@ -87,9 +106,14 @@ def test_entry_points_need_the_card_by_default(tmp_path):
         cli.main([str(_tiny_scene(tmp_path)), "--output-dir", str(tmp_path)])
     assert not (tmp_path / "demo2.ppm").exists()
     for main, argv in ((bench.main, ["--out", str(tmp_path / "bench")]), (perf.main, ["--root", "1"]),
-                       (mse_check.main, ["--root", "1"])):
+                       (mse_check.main, ["--root", "1"]),
+                       (f64_audit.main, [str(_tiny_scene(tmp_path)), "--root", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        oracle.oracle_render(sd, 1, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        oracle.precision_audit(sd, 1, 2)
     assert not (tmp_path / "bench").exists()
 
 
