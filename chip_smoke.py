@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero before the result line:
    nvcc, and phase 15's variants of the second (and with ``--parent`` the
    other checkout's two sources), all at once, and prints the build seconds
    and the compiler's register report for each; and the native host code
-   (``csrc/fluxnative.cpp``, g++), which must load;
+   (``csrc/fluxnative.cpp``, g++), which must load with its scheduler
+   core;
 3. kernel vs plain: demo2 at its full 800 width, an 8-row band, root 4,
    depth 5, seed 42, through the kernel and through its plain PyTorch
    version on the card; two kernel launches must be bitwise equal, and
@@ -152,7 +153,9 @@ Phases, in order; any failure exits non-zero before the result line:
    bytes held equal to a band loop over ``Renderer.render_rows`` with the
    same bands, encoded by ``image.ppm_bytes``:
    a. demo2 at 800x600, root 128, depth 5, ``-R 50`` through a local worker
-      (K1), with both wall times;
+      (K1), with both wall times, its round on the native scheduler core;
+      then the same job with its round on the Python core (its job
+      seconds beside the native core's);
    b. the same job through a port node (``python -m flux_tpu_torch.node``,
       a subprocess on the card): ``-L -n``, then ``-n`` beside the local
       worker, with the units each worker rendered;
@@ -162,9 +165,10 @@ Phases, in order; any failure exits non-zero before the result line:
    d. a small job with ``--profile-dir``: the trace must be written; prints
       the kernel names it records;
    e. fails on a JobFailed event, a job error, a retry round, a native
-      library that did not load, or a node that does not exit 0 when
-      stopped; prints whether ``msgpack`` is installed (the wire does not
-      use it);
+      library that did not load, a scheduler core that did not load, a
+      job's round not on the native core (or not closed exactly once), or
+      a node that does not exit 0 when stopped; prints whether ``msgpack``
+      is installed (the wire does not use it);
 18. the device mesh (``flux_tpu_torch.parallel``), over the card repeated,
    each path with the launch counts set to 0 just before and read just
    after:
@@ -226,7 +230,19 @@ Phases, in order; any failure exits non-zero before the result line:
    scene and its two mirrors at depth 16; f. ``python -m
    flux_tpu_torch.f64_audit scenes/demo2.yml --root 4`` exits 0 and prints
    e's demo2 report. Each row's numbers go into its entry of the kernels
-   line as ``f64_audit``.
+   line as ``f64_audit``;
+21. the last parts of ``flux_tpu`` the port gained: b. the scheduler core
+   on the card's host: on the native and the Python core, three rounds of
+   100,000 units drained by 8 threads, and three by one (each unit handed
+   out exactly once, ``missing()`` empty once all are completed), µs a
+   pull, their medians;
+   1,000 native rounds of 100,000 units created and closed leave no memory
+   behind (1,000 left open, the control, show); c. ``Intersector(mode=
+   "scan_carry")`` on spheres512: on 4,096 camera rays and 4,096 rays
+   leaving surfaces, the hit record and the any-hit mask of ``mode="scan"``
+   bit for bit; a 50-row band at root 8 through the scene megakernel with
+   a scan_carry intersector, one ``scan`` launch, the scan intersector's
+   bits (its count goes into the scan entry of the kernels line).
 
 Every phase prints its wall seconds. It ends with a ``{"kernels": [...]}``
 line (one entry per instantiation and configuration, and one per
@@ -256,17 +272,17 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from flux_tpu_torch.camera import camera_tensors
+from flux_tpu_torch.camera import camera_tensors, primary_rays
 from flux_tpu_torch.color import luminance, max_to_one
 from flux_tpu_torch.checkpoint import ProgressiveRenderer, load_checkpoint
-from flux_tpu_torch import bench, genscene, meshgen, native, sampler_debug, wire
+from flux_tpu_torch import bench, genscene, meshgen, native, sampler_debug, sched, wire
 from flux_tpu_torch.artifacts import (
     ADAPTIVE_P99, ADAPTIVE_P99_ATOL, ADAPTIVE_SPP, CORNELL_GATES, HEADLINE_GATES, MIS_MSE, MIS_MSE_RTOL, NEE_GATES,
     SPHERES512_GATES, adaptive_gates, failed, frame_gates, frame_vs_png, mis_gates,
 )
 from flux_tpu_torch.cli import DEFAULT_ROWS_PER_UNIT, FailureLog, run as cli_run
 from flux_tpu_torch.image import Image, ppm_bytes, read_ppm
-from flux_tpu_torch.job import JobConfiguration
+from flux_tpu_torch.job import JobConfiguration, WorkUnit
 from flux_tpu_torch.manager import ImageBuilder, MultiSink, RenderManager
 from flux_tpu_torch.ops import build, scene_kernel
 from flux_tpu_torch.ops.intersect import SCAN_BLOCK, Intersector, scan_layout, tri_layout
@@ -286,6 +302,8 @@ from flux_tpu_torch.ops.sweep_kernel import (
 )
 from flux_tpu_torch.parallel import MeshRenderer, init_multihost, make_mesh, slot_launch
 from flux_tpu_torch.render import Renderer, finalize, plan_chunks, render_block
+from flux_tpu_torch.sched import SchedulerRound, native_sched_available
+from flux_tpu_torch.vec import Vec3
 from flux_tpu_torch.scene import (
     CameraData, CameraSettings, MaterialData, MaterialKind, OutputSettings, SceneData, SphereData, compile_scene,
     load_scene,
@@ -856,7 +874,7 @@ def entered_share(c: dict, isect) -> dict:
     both."""
     folds = max(c["bounces"] + c["shadow_folds"], 1)
     out = {}
-    if isect.mode == "scan":
+    if isect.scans:
         nb, near, sh = isect.layout.n_blocks, max(c["bounces"], 1), max(c["shadow_folds"], 1)
         out.update(sphere_blocks=nb, sphere_units_entered_per_fold=c["sphere_blocks_entered"] / near,
                    sphere_tests_per_fold=c["sphere_tests"] / near,
@@ -1799,14 +1817,45 @@ def band_loop_ppm(dev, argv: list) -> tuple:
     return ppm_bytes(img.pixels), seconds, img.pixels
 
 
-def job_path(label: str, argv: list, out_dir: str, want: bytes, config: str) -> dict:
+@contextlib.contextmanager
+def counted_rounds(force_python: bool = False):
+    """While open, every scheduler round a manager of this process makes
+    (``sched.SchedulerRound``, which the manager looks up at each round) is
+    recorded with the times it was closed; ``force_python`` puts them on
+    the Python core."""
+    made = []
+
+    class Counted(SchedulerRound):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **{**kw, "force_python": force_python})
+            self.closes = 0
+            made.append(self)
+
+        def close(self):
+            self.closes += 1
+            super().close()
+
+    sched.SchedulerRound = Counted
+    try:
+        yield made
+    finally:
+        sched.SchedulerRound = SchedulerRound
+
+
+def job_path(label: str, argv: list, out_dir: str, want: bytes, config: str, force_python: bool = False) -> dict:
     """One job through cli.run, its launch counts set to 0 just before and
     read just after: no JobFailed, no job error, no retry round, every unit
     rendered once, one launch of ``config`` here for each unit the local
-    worker rendered (none with -L), and the PPM bytes equal to ``want``."""
+    worker rendered (none with -L), and the PPM bytes equal to ``want``.
+    Its one round runs on the native scheduler core (the Python core with
+    ``force_python``) and is closed once."""
     opt = dict(zip(argv[1::2], argv[2::2]))
     n_units = -(-load_scene(argv[0]).output_settings.image_height // int(opt["-R"]))
-    ran, n, secs = run_path(label, lambda: cli_run([*argv, "--output-dir", out_dir]))
+    with counted_rounds(force_python) as rounds:
+        ran, n, secs = run_path(label, lambda: cli_run([*argv, "--output-dir", out_dir]))
+    check(len(rounds) == 1, f"{label}: {len(rounds)} scheduler rounds, not 1")
+    check(rounds[0].native is not force_python, f"{label}: the round ran on the wrong scheduler core")
+    check(rounds[0].closes == 1, f"{label}: the round was closed {rounds[0].closes} times, not once")
     check(ran["error"] is None, f"{label}: the job failed: {ran['error']}")
     check(not ran["worker_failures"], f"{label}: JobFailed events {ran['worker_failures']}")
     check(ran["retry_rounds"] == 0, f"{label}: {ran['retry_rounds']} retry rounds, {ran['retried_units']} units")
@@ -1816,7 +1865,8 @@ def job_path(label: str, argv: list, out_dir: str, want: bytes, config: str) -> 
     with open(ran["out"], "rb") as f:
         check(f.read() == want, f"{label}: the PPM differs from the band loop's bytes")
     res = {"seconds": secs, "job_seconds": ran["band_seconds"], "launches": n,
-           "units_by_worker": ran["units_by_worker"], "ppm_equal": True}
+           "units_by_worker": ran["units_by_worker"], "ppm_equal": True,
+           "scheduler_core": "native" if rounds[0].native else "python"}
     return {**res, "trace": ran.get("trace")}
 
 
@@ -1893,7 +1943,8 @@ def trace_kernels(path: str) -> dict:
 
 def phase_job_path(dev, out_dir: str, card: str) -> dict:
     check(native.available(), f"the native host code did not load: {native.load_error}")
-    log(f"native host code: {native.library_path()}; msgpack installed: "
+    check(native_sched_available(), "the native scheduler core did not load")
+    log(f"native host code and scheduler core: {native.library_path()}; msgpack installed: "
         f"{importlib.util.find_spec('msgpack') is not None} (the wire does not use it)")
     scene = lambda name: os.path.join(HERE, "scenes", f"{name}.yml")
     results = {}
@@ -1909,6 +1960,10 @@ def phase_job_path(dev, out_dir: str, card: str) -> dict:
     res.update(band_loop_seconds=loop_s, job_path_over_band_loop_s=res["job_seconds"] - loop_s,
                cli_over_band_loop_s=res["seconds"] - loop_s)
     note("a. demo2 800x600 root 128 depth 5 -R 50, local worker", res)
+    # The same job with its round on the Python core, beside the native one.
+    res = job_path("demo2 local, python core", demo2, os.path.join(out_dir, "a2"), want, "sweep", force_python=True)
+    res.update(band_loop_seconds=loop_s, job_path_over_band_loop_s=res["job_seconds"] - loop_s)
+    note("a. demo2 the same, the round on the Python scheduler core", res)
     note("a. one demo2 unit over the wire (host)", wire_unit_ms(frame[:50]))
     node = NodeProcess()
     try:
@@ -2653,6 +2708,147 @@ def phase_f64_audit(dev, kernels: list) -> dict:
     return {"rows": rows, "audits": reports, "seconds": seconds, "oracle_s": oracle_s}
 
 
+# ---- phase 21: the scheduler core on the card's host, and scan_carry ----------
+
+
+def rss_bytes() -> int:
+    """This process's resident memory."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def drain_round(force_python: bool, n_units: int, n_threads: int) -> float:
+    """One scheduler round of ``n_units`` drained by ``n_threads`` threads
+    started together: every unit handed out exactly once, ``missing()``
+    empty once every unit is completed, the round closed. Returns the
+    drain's wall time over the units, in µs a pull."""
+    units = [WorkUnit(row_start=i, row_end=i, job_id=None) for i in range(n_units)]
+    rnd = SchedulerRound(units, n_threads, force_python=force_python)
+    check(rnd.native is not force_python, "a round on the wrong scheduler core")
+    pulled = [[] for _ in range(n_threads)]
+    start = threading.Barrier(n_threads + 1)
+
+    def worker(k):
+        start.wait()
+        while (u := rnd.get()) is not None:
+            pulled[k].append(u.row_start)
+        rnd.done()
+
+    threads = [threading.Thread(target=worker, args=(k,), daemon=True) for k in range(n_threads)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    released = rnd.wait(120.0)
+    seconds = time.perf_counter() - t0
+    for t in threads:
+        t.join(10)
+    check(released and not any(t.is_alive() for t in threads), "a scheduler round's barrier did not release")
+    rows = sorted(r for p in pulled for r in p)
+    check(rows == list(range(n_units)), "a scheduler round handed a unit out twice, or lost one")
+    check(len(rnd.missing()) == n_units, "the ledger holds a unit no one completed")
+    for r in rows:
+        rnd.complete_row(r)
+    check(rnd.missing() == [], "units missing after every unit was completed")
+    rnd.close()
+    return seconds * 1e6 / n_units
+
+
+def phase_scheduler_core(card: str) -> dict:
+    """Phase 21 b: on each core, three rounds of 100,000 units drained by 8
+    threads (µs a pull, their median), and three by one thread; then the
+    native handle's lifetime:
+    1,000 rounds of 100,000 units created and closed leave the process's
+    resident memory where it was (under 4 MiB of growth, where a handle
+    not freed would leave its 100,000-byte ledger: 95 MiB), and 1,000
+    left open, the control, grow it by at least half their 95.4 MiB (freed
+    memory the process already holds takes up some of theirs)."""
+    check(native_sched_available(), "the native scheduler core did not load")
+    res = {"units": 100_000, "threads": 8}
+    for core, force in (("native", False), ("python", True)):
+        runs = [drain_round(force, 100_000, 8) for _ in range(3)]
+        res[f"{core}_us_per_pull"] = float(np.median(runs))
+        res[f"{core}_us_per_pull_runs"] = runs
+        # One thread: the pull's own cost, without the threads' contention.
+        res[f"{core}_us_per_pull_one_thread"] = float(np.median([drain_round(force, 100_000, 1) for _ in range(3)]))
+    lib = native.get_lib()
+    sched._register(lib)  # the round's own core, without a 100,000-unit list each time
+    rss0 = rss_bytes()
+    for _ in range(1000):
+        sched._NativeCore(lib, 100_000, 8).close()
+    rss1 = rss_bytes()
+    open_cores = [sched._NativeCore(lib, 100_000, 8) for _ in range(1000)]
+    grown = rss_bytes() - rss1
+    for core in open_cores:
+        core.close()
+    res.update(rss_growth_of_1000_closed_rounds_mib=(rss1 - rss0) / 2**20,
+               rss_growth_of_1000_open_rounds_mib=grown / 2**20)
+    log(f"scheduler core on the host of {card}:", json.dumps(res))
+    check(rss1 - rss0 < 4 * 2**20, "1,000 closed rounds left memory behind")
+    check(grown >= 48 * 2**20, "1,000 open rounds (95.4 MiB of ledgers) grew the resident memory by less than "
+          "half of that: the check could not see a leak")
+    return res
+
+
+def hits_equal(a, b) -> bool:
+    """Two hit records bit for bit, every field."""
+    fields = lambda h: (h.mask, h.t, h.shape, h.kind, h.exponent, *h.point, *h.normal, *h.albedo)
+    return all(torch.equal(x, y) if not x.is_floating_point() else bits_equal(x, y)
+               for x, y in zip(fields(a), fields(b)))
+
+
+def phase_scan_carry(dev) -> dict:
+    """Phase 21 c: ``Intersector(mode="scan_carry")`` on spheres512 (513
+    spheres) against ``mode="scan"`` bit for bit, on the card: 4,096 camera
+    rays (the frame's middle 64x64 pixels) and 4,096 rays leaving the
+    surfaces they hit (``prev`` set, random directions), hit records and
+    any-hit masks; then a 50-row band at root 8 through the scene
+    megakernel with the scan_carry intersector, counted as one ``scan``
+    launch and equal to the scan intersector's launch bit for bit."""
+    sd = stock("spheres512")
+    sc, cam, isect, _, w, h = scene_setup(dev, sd, "scan", False)
+    carry = replace(isect, mode="scan_carry")
+    check(sc.num_spheres == 513 and carry.scans, "spheres512 is not 513 spheres, or scan_carry does not scan")
+    rows = torch.arange(h // 2 - 32, h // 2 + 32, device=dev).repeat_interleave(64)
+    cols = torch.arange(w // 2 - 32, w // 2 + 32, device=dev).repeat(64)
+    half = torch.full(rows.shape, 0.5, device=dev)
+    o, d = primary_rays(cam, rows, cols, w, h, half, half, torch.zeros_like(half), torch.zeros_like(half))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    hit = carry(sc, o, d)
+    check(hits_equal(hit, isect(sc, o, d)), "scan_carry's hit record differs from the scan's on camera rays")
+    on = (hit.mask & (hit.kind != MaterialKind.EMISSIVE)).nonzero().flatten()
+    check(len(on) > 0, "no camera ray hit a surface")
+    idx = on[torch.arange(4096, device=dev) % len(on)]
+    po = Vec3(*(c[idx] for c in hit.point))
+    raw = torch.randn((3, 4096), generator=gen, device=dev)
+    raw = raw / raw.norm(dim=0)
+    pd = Vec3(raw[0], raw[1], raw[2])
+    prev = hit.shape[idx]
+    leaving = carry(sc, po, pd, prev=prev)
+    check(hits_equal(leaving, isect(sc, po, pd, prev=prev)), "scan_carry's hit record differs on leaving rays")
+    t_max = torch.rand(4096, generator=gen, device=dev) * 29.5 + 0.5
+    excl = torch.zeros(4096, dtype=torch.int32, device=dev)
+    occ = carry.occluded(sc, po, pd, t_max, excl, origin_idx=prev)
+    check(torch.equal(occ, isect.occluded(sc, po, pd, t_max, excl, origin_idx=prev)),
+          "scan_carry's any-hit mask differs from the scan's")
+    rays_s = time.perf_counter() - t0
+    row0 = h // 2 - 25
+    kw = dict(img_w=w, img_h=h, n_rows=50, n_samples=64, root=8, max_depth=5)
+    band, launches, secs = run_path("21 c spheres512 50-row band, root 8, through scan_carry",
+                                    lambda: render_block_scene(sc, cam, row0, 0, 0, isect=carry, **kw))
+    check(launches == {"scan": 1}, f"the scan_carry band launched {launches}, not one scan")
+    ref = render_block_scene(sc, cam, row0, 0, 0, isect=isect, **kw)
+    check(bits_equal(band, ref), "the scan_carry band differs from the scan band")
+    check(bool(torch.isfinite(band).any()) and float(band.max()) > 0, "the scan_carry band is empty")
+    res = {"camera_rays": 4096, "camera_hits": int(hit.mask.sum()), "leaving_rays": 4096,
+           "leaving_hits": int(leaving.mask.sum()), "occluded": int(occ.sum()), "rays_seconds": rays_s,
+           "hits_and_masks_bitwise_equal": True, "band_launches": launches, "band_seconds": secs,
+           "band_bitwise_equal": True}
+    log("scan_carry on spheres512:", json.dumps(res))
+    return res
+
+
 def kernel_entry(name: str, replaces: str, launches: int, meas: dict,
                  source: str = "flux_tpu_torch/csrc/sweep_megakernel.cu") -> dict:
     return {
@@ -2703,6 +2899,7 @@ def main(argv=None) -> int:
         native_built = pool.submit(native.get_lib)
         build.build_many(list(build.LIBRARIES))
         check(native_built.result() is not None, f"the native host code did not build: {native.load_error}")
+        check(native_sched_available(), "the native scheduler core did not load")
         if parent_built is not None:
             parent_built.result()
             for name, info in parent.ops.build.BUILD_LOG.items():
@@ -2794,6 +2991,12 @@ def main(argv=None) -> int:
         phase_entry_points(tmp, card)
     with phase_timer("20 the f64 audit"):
         phase_f64_audit(dev, kernels)
+    with phase_timer("21 b the scheduler core"):
+        phase_scheduler_core(card)
+    with phase_timer("21 c scan_carry"):
+        carried = phase_scan_carry(dev)
+    scan_entry = next(k for k in kernels if k["name"] == "scene_megakernel[scan]")
+    scan_entry["scan_carry_launches"] = carried["band_launches"]["scan"]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -28,3 +28,38 @@ kernel runs instead. This package imports neither JAX nor ``flux_tpu``.
 """
 
 __version__ = "0.1.0"
+
+# flux_tpu's package-level names, each resolved at first use (PEP 562), so
+# that importing the package, or one module of it such as the float64
+# oracle, loads none of the renderer, the samplers or the kernels' wrappers.
+_NAMES = {
+    "constants": ("constants", None),
+    "samplers": ("samplers", None),
+    "Job": ("job", "Job"),
+    "JobConfiguration": ("job", "JobConfiguration"),
+    "JobID": ("job", "JobID"),
+    "WorkUnit": ("job", "WorkUnit"),
+    "Renderer": ("render", "Renderer"),
+    "SceneData": ("scene", "SceneData"),
+    "compile_scene": ("scene", "compile_scene"),
+    "load_scene": ("scene", "load_scene"),
+    "loads_scene": ("scene", "loads_scene"),
+    "manager": ("manager", None),
+    "workers": ("workers", None),
+    "node": ("node", None),
+    "parallel": ("parallel", None),
+    "image": ("image", None),
+    "cli": ("cli", None),
+}
+
+__all__ = list(_NAMES)
+
+
+def __getattr__(name):
+    if name not in _NAMES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    module, attr = _NAMES[name]
+    mod = importlib.import_module(f".{module}", __name__)
+    return mod if attr is None else getattr(mod, attr)

@@ -416,9 +416,11 @@ class RenderManager:
     def _dispatch_round(self, job: Job, units, cancel, tracker) -> "SchedulerRound":
         """One pull-dispatch round over the currently-alive workers — the
         reference's bounded(1) shared queue + cancellable producer + barrier
-        (manager.rs:100-166), run by ``sched.SchedulerRound``. The round
-        object is both the unit queue workers drain and the wait group the
-        manager blocks on."""
+        (manager.rs:100-166), run by ``sched.SchedulerRound`` on the native
+        scheduler core (``csrc/fluxnative.cpp``). The round object is both
+        the unit queue workers drain and the wait group the manager blocks
+        on; the caller closes it once it has read ``missing()`` (no worker
+        touches a round after its barrier is released)."""
         from .sched import SchedulerRound
 
         workers = [w for w in self._workers if w.alive]
@@ -446,6 +448,7 @@ class RenderManager:
             except RuntimeError:
                 rnd.done()
         if sent == 0:
+            rnd.close()
             raise RuntimeError("no alive workers")
 
         d_println("Render manager: waiting for job completion or cancellation")
@@ -484,6 +487,7 @@ class RenderManager:
             # with no progress ends the retries, which also guarantees
             # termination — the missing count strictly decreases otherwise.
             missing = rnd.missing()
+            rnd.close()
             # A round where healthy workers complete exactly as many units
             # as a flaky worker newly loses is still forward progress
             # (the missing SET changed even though its size didn't), so
@@ -499,6 +503,7 @@ class RenderManager:
                 handle.retried_units += len(missing)
                 rnd = self._dispatch_round(job, missing, cancel, tracker)
                 still_missing = rnd.missing()
+                rnd.close()
                 if len(still_missing) < len(missing):
                     stalled_rounds = 0
                 else:

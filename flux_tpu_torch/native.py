@@ -1,11 +1,14 @@
 """ctypes loader of the native host code, ``csrc/fluxnative.cpp``
 (``flux_tpu/native.py``).
 
-The library holds the P3 encoder behind :func:`flux_tpu_torch.image.ppm_bytes`.
-It is built with ``g++ -O3 -fPIC -shared`` at first use, into the directory
-the CUDA kernels are built in (``ops/build.py``'s ``BUILD_DIR``), under a
-name keyed by a hash of the source and the flags. Where there is no compiler, the callers fall
-back to Python: the native path is an accelerator, never a requirement.
+The library holds the P3 encoder behind :func:`flux_tpu_torch.image.ppm_bytes`,
+the same truncating quantization to uint16 (``flux_quantize_u16``), and the
+scheduler core of :mod:`flux_tpu_torch.sched`, which declares the
+``flux_sched_*`` signatures itself. It is built with ``g++ -O3 -fPIC
+-shared`` at first use, into the directory the CUDA kernels are built in
+(``ops/build.py``'s ``BUILD_DIR``), under a name keyed by a hash of the
+source and the flags. Where there is no compiler, the callers fall back to
+Python: the native path is an accelerator, never a requirement.
 ``load_error`` says why a load failed.
 """
 
@@ -74,6 +77,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.flux_ppm_encode.restype = ctypes.c_size_t
         lib.flux_ppm_encode.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p,
+        ]
+        lib.flux_quantize_u16.restype = None
+        lib.flux_quantize_u16.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint16), ctypes.c_int64,
         ]
         _lib = lib
         return _lib

@@ -54,6 +54,7 @@ __all__ = [
     "quad_a",
     "intersect",
     "intersect_scan",
+    "intersect_scan_carry",
     "occluded_sweep",
     "occluded_scan",
     "triangle_t",
@@ -699,6 +700,12 @@ def intersect_scan(scene: SceneTensors, o: Vec3, d: Vec3, layout: Optional[ScanL
     return finish_scan_carry(scene, o, d, carry, prev=prev)
 
 
+# flux_tpu's form that carries the winner's record through the loop (its
+# Pallas kernel's) beside the one that gathers it at the end: the port's
+# scan, and its kernel's, already carry the record, so the two are one.
+intersect_scan_carry = intersect_scan
+
+
 def occluded_scan(scene: SceneTensors, o: Vec3, d: Vec3, t_max, exclude_idx,
                   layout: Optional[ScanLayout] = None, origin_idx=None):
     """Any-hit shadow test by a loop over the sphere blocks: the scaling
@@ -777,25 +784,33 @@ def merge_tri_hit(hit: Hit, o: Vec3, d: Vec3, tri_winner, base: int) -> Hit:
 class Intersector:
     """The chosen intersection strategy, built once by the renderer and
     called as ``isect(scene, o, d, prev=...)``: the sweep, or the scan over
-    a prebuilt :class:`ScanLayout`. ``tri_layout`` rides along for the
-    kernel (the plain folds read the scene's triangle arrays)."""
+    a prebuilt :class:`ScanLayout` (``"scan"``, or ``"scan_carry"``, which is
+    the same scan under ``flux_tpu``'s name for its carried form).
+    ``tri_layout`` rides along for the kernel (the plain folds read the
+    scene's triangle arrays)."""
 
     layout: Optional[ScanLayout] = None
-    mode: str = "sweep"  # 'sweep' | 'scan'
+    mode: str = "sweep"  # 'sweep' | 'scan' | 'scan_carry'
     tri_layout: Optional[TriLayout] = None
 
     def __post_init__(self):
-        if self.mode not in ("sweep", "scan"):
+        if self.mode not in ("sweep", "scan", "scan_carry"):
             raise ValueError(f"unknown intersection mode {self.mode!r}")
 
+    @property
+    def scans(self) -> bool:
+        """True for the scan over the layout's sphere blocks, in either
+        name."""
+        return self.mode != "sweep"
+
     def __call__(self, scene: SceneTensors, o: Vec3, d: Vec3, prev=None) -> Hit:
-        if self.mode == "scan":
+        if self.scans:
             return intersect_scan(scene, o, d, layout=self.layout, prev=prev)
         return intersect(scene, o, d, prev=prev)
 
     def occluded(self, scene: SceneTensors, o: Vec3, d: Vec3, t_max, exclude_idx, origin_idx=None):
         """Any-hit shadow test (see :func:`occluded_sweep`); callers pass
         the light's own ray-t as ``t_max``."""
-        if self.mode == "scan":
+        if self.scans:
             return occluded_scan(scene, o, d, t_max, exclude_idx, layout=self.layout, origin_idx=origin_idx)
         return occluded_sweep(scene, o, d, t_max, exclude_idx, origin_idx=origin_idx)

@@ -57,6 +57,7 @@ __all__ = [
     "FluxGeom",
     "declare",
     "config_name",
+    "launch_config",
     "pack_sphere_table",
     "pack_plane_table",
     "pack_tri_table",
@@ -159,6 +160,16 @@ def config_name(accel: str, tris: bool, with_stats: bool, nee: bool, physical: b
     them."""
     return (accel + "+tri" * tris + "+nee" * nee + "+trilight" * (nee and tri_lights)
             + "+physical" * physical + "+stats" * with_stats)
+
+
+def launch_config(scene: SceneTensors, isect: Intersector, with_stats: bool, lights: Optional[LightTensors],
+                  physical: bool) -> str:
+    """The configuration a launch of :func:`render_block_scene` is counted
+    under: ``scan…`` for an intersector that scans (``"scan"`` or
+    ``"scan_carry"``: the kernel's scan carries the winner's record, as
+    ``flux_tpu``'s Pallas body does under either), ``sweep…`` otherwise."""
+    return config_name("scan" if isect.scans else "sweep", scene.num_triangles > 0, with_stats,
+                       lights is not None, physical, tri_lights=lights is not None and lights.has_tris)
 
 
 def _rows4(*cols) -> np.ndarray:
@@ -422,8 +433,8 @@ def table_bytes(isect: Intersector, lights: Optional[LightTensors], n_shapes: in
     ``scene`` its plane table (more than ``MAX_PLANES`` planes)."""
     total = 0
     if scene is not None and scene.num_planes > MAX_PLANES:
-        total += pack_plane_table(scene, isect.mode == "sweep")[0].nbytes
-    if isect.mode == "scan":
+        total += pack_plane_table(scene, not isect.scans)[0].nbytes
+    if isect.scans:
         total += pack_sphere_table(isect.layout)[0].nbytes
     if isect.tri_layout is not None:
         total += pack_tri_table(isect.tri_layout)[0].nbytes
@@ -527,7 +538,7 @@ def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTen
             if name not in skip:
                 setattr(geom, name, table.data_ptr() + 4 * off)
 
-    scan = isect.mode == "scan"
+    scan = isect.scans
     if scan:
         if isect.layout is None:
             raise ValueError("an Intersector in scan mode needs its ScanLayout")
@@ -624,7 +635,7 @@ def render_block_scene(
             f"the scene megakernel is built for sm_90a (Hopper); {torch.cuda.get_device_name(dev)} "
             f"is sm_{''.join(map(str, torch.cuda.get_device_capability(dev)))}"
         )
-    scan = isect.mode == "scan"
+    scan = isect.scans
     if not scan and scene.num_triangles == 0 and scene.num_planes <= MAX_PLANES:
         # Its launches would also be counted under the sweep megakernel's names.
         raise ValueError("a sweep without triangles is the sweep megakernel's launch (render_block_sweep)")
@@ -648,8 +659,7 @@ def render_block_scene(
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
     plan = plan_launch(functools.partial(lib.flux_scene_blocks_per_sm, ctypes.byref(geom)), dev, n_pix, n_samples,
                        with_stats, lights is not None, physical, work_counts is not None, max_depth, split)
-    name = config_name(isect.mode, scene.num_triangles > 0, with_stats, lights is not None, physical,
-                       tri_lights=lights is not None and lights.has_tris)
+    name = launch_config(scene, isect, with_stats, lights, physical)
     with build.LAUNCH_LOCK, torch.cuda.device(dev):
         err = lib.flux_scene_render(
             out.data_ptr(), counts_ptr, ctypes.byref(packed), ctypes.byref(geom), int(with_stats),
@@ -728,7 +738,7 @@ def flops_lower_bound(scene: SceneTensors, isect: Intersector, n_samples: int, c
         scene, n_samples, c["bounces"], with_stats=with_stats, physical=physical,
         light_samples=0, shadow_rays=0, reverse_densities=0, glossy_lobes=c["glossy_lobes"],
     )
-    if isect.mode == "scan":  # the spheres are charged by leaves below, not per bounce
+    if isect.scans:  # the spheres are charged by leaves below, not per bounce
         base -= c["bounces"] * scene.num_spheres * sk._OPS_PER_SPHERE_TEST
     shared = 0 if separate_folds else 1
     sphere_sh = sk._OPS_PER_SPHERE_TEST - shared * sk._OPS_PER_SPHERE_ORIGIN
@@ -740,7 +750,7 @@ def flops_lower_bound(scene: SceneTensors, isect: Intersector, n_samples: int, c
     f = tri_light_fraction
     contrib = sk._OPS_PER_SHADOW_CONTRIB + (sk._OPS_PER_SHADOW_CONTRIB_MIS if physical else 0)
     shadow_planes = max(scene.num_planes - 1, 0) * plane_sh
-    shadow_spheres = max(scene.num_spheres - 1, 0) * sphere_sh if isect.mode == "sweep" else 0
+    shadow_spheres = max(scene.num_spheres - 1, 0) * sphere_sh if not isect.scans else 0
     leaves = c[f"sphere_{unit}_needed"] * (size * sk._OPS_PER_SPHERE_TEST + _OPS_PER_BOX_TEST)
     if separate_folds:
         leaves += c[f"shadow_sphere_{unit}_needed"] * (size * sk._OPS_PER_SPHERE_TEST + _OPS_PER_BOX_TEST)

@@ -128,10 +128,20 @@ def _units(n):
     return [WorkUnit(row_start=i * 10, row_end=i * 10 + 9, job_id=None) for i in range(n)]
 
 
-def _jax_round(units, workers, cancel=None):
-    """``flux_tpu``'s round over the same units, on its Python core."""
+def _jax_round(units, workers, cancel=None, force_python=True):
+    """``flux_tpu``'s round over the same units, on its Python core unless
+    ``force_python`` is False."""
     ju = [j_job.WorkUnit(row_start=u.row_start, row_end=u.row_end, job_id=None) for u in units]
-    return j_sched.SchedulerRound(ju, workers, cancel_event=cancel, force_python=True)
+    return j_sched.SchedulerRound(ju, workers, cancel_event=cancel, force_python=force_python)
+
+
+# The four rounds held to one trace: each package's native and Python core.
+ROUNDS = {
+    "port-native": lambda u, k, c: SchedulerRound(u, k, cancel_event=c),
+    "port-python": lambda u, k, c: SchedulerRound(u, k, cancel_event=c, force_python=True),
+    "flux_tpu-native": lambda u, k, c: _jax_round(u, k, c, force_python=False),
+    "flux_tpu-python": _jax_round,
+}
 
 
 def test_native_library_builds_into_the_kernels_build_directory():
@@ -159,14 +169,19 @@ def _script(rnd, cancel):
     return seen
 
 
-def test_round_behaves_as_the_jax_packages():
+@pytest.mark.parametrize("name", list(ROUNDS))
+def test_round_behaves_as_the_jax_packages(name):
+    """Every face of the round in one fixed order gives flux_tpu's Python
+    core's trace, on each of the four rounds."""
     traces = {}
-    for name, make in (("port", SchedulerRound), ("flux_tpu", _jax_round)):
+    for key in (name, "flux_tpu-python"):
         cancel = threading.Event()
-        traces[name] = _script(make(_units(6), 2, cancel), cancel)
-    assert traces["port"] == traces["flux_tpu"]
-    assert traces["port"] == [0, 10, 20, [10, 30, 40, 50], False, False, None, True, True,
-                              [10, 30, 40, 50]]
+        rnd = ROUNDS[key](_units(6), 2, cancel)
+        assert rnd.native == key.endswith("native")
+        traces[key] = _script(rnd, cancel)
+        rnd.close()
+    assert traces[name] == traces["flux_tpu-python"]
+    assert traces[name] == [0, 10, 20, [10, 30, 40, 50], False, False, None, True, True, [10, 30, 40, 50]]
 
 
 @pytest.mark.parametrize("n, k", [(300, 6), (7, 3)])
@@ -188,6 +203,7 @@ def test_concurrent_pulls_are_disjoint_and_complete(n, k):
         t.join(5)
     assert sorted(r for p in pulled for r in p) == [i * 10 for i in range(n)]
     assert rnd.missing() == []
+    rnd.close()
 
 
 @pytest.mark.parametrize("workers", [1, 2])
@@ -198,6 +214,7 @@ def test_empty_round_and_barrier_timeout(workers):
     for _ in range(workers):
         rnd.done()
     assert rnd.wait(1.0)
+    rnd.close()
 
 
 # ---- the native host code and the Image --------------------------------------

@@ -11,7 +11,6 @@ socket has a timeout and every thread is joined with one."""
 
 import contextlib
 import os
-import select
 import signal
 import socket
 import subprocess
@@ -302,11 +301,16 @@ def test_node_command_serves_and_stops_cleanly(tmp_path):
         [sys.executable, "-m", "flux_tpu_torch.node", "-H", "127.0.0.1", "-p", str(port), "--device", "cpu"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
+    # A thread reads the node's output line by line: a select() on the pipe
+    # misses a line that a buffered readline() already took in with the one
+    # before it.
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(iter(proc.stdout.readline, "")), daemon=True)
+    reader.start()
     try:
-        lines, deadline = [], time.monotonic() + WAIT
+        deadline = time.monotonic() + WAIT
         while not any("listening" in ln for ln in lines) and time.monotonic() < deadline:
-            if select.select([proc.stdout], [], [], 1.0)[0]:
-                lines.append(proc.stdout.readline())
+            time.sleep(0.05)
         assert any("listening" in ln for ln in lines), lines
         sd = tiny_scene()
         net = net_worker(f"127.0.0.1:{port}")
@@ -316,11 +320,14 @@ def test_node_command_serves_and_stops_cleanly(tmp_path):
             net.stop()
         assert handle.ok and np.array_equal(img.pixels, band_loop(sd, CFG))
         proc.send_signal(signal.SIGTERM)
-        out, _ = proc.communicate(timeout=WAIT)
+        proc.wait(timeout=WAIT)
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate(timeout=WAIT)
+            proc.wait(timeout=WAIT)
+        reader.join(timeout=WAIT)
+    assert not reader.is_alive()
+    out = "".join(lines)
     assert proc.returncode == 0, out
     assert "stopped" in out
 

@@ -12,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import tomllib
+import types
 import torch
 import yaml
 
@@ -55,20 +56,58 @@ def test_import_boundary_in_a_fresh_process():
 def test_the_oracle_imports_none_of_what_it_judges():
     """flux_tpu_torch.oracle, the float64 judge, loads none of the float32
     path's modules: not the samplers, the intersection, the shading, NEE or
-    the renderer (the frame-epsilon pin reads ops/brdf.py's source)."""
+    the renderer (the frame-epsilon pin reads ops/brdf.py's source). Before
+    it, a fresh ``import flux_tpu_torch`` loads none of its modules: each
+    package-level name loads its module at first use."""
     code = (
         "import sys\n"
+        "import flux_tpu_torch as ft\n"
+        "loaded = sorted(m for m in sys.modules if m.startswith('flux_tpu_torch.'))\n"
+        "assert not loaded, loaded\n"
         "import flux_tpu_torch.oracle\n"
         "judged = ('samplers', 'ops.intersect', 'ops.shade', 'ops.nee', 'render')\n"
         "bad = sorted(m for m in sys.modules if any(m == 'flux_tpu_torch.' + j\n"
         "             or m.startswith('flux_tpu_torch.' + j + '.') for j in judged))\n"
         "assert not bad, bad\n"
         "assert 'flux_tpu_torch.constants' in sys.modules and 'flux_tpu_torch.scene' in sys.modules\n"
+        "assert ft.SceneData.__module__ == 'flux_tpu_torch.scene' and 'flux_tpu_torch.render' not in sys.modules\n"
+        "assert ft.Renderer.__module__ == 'flux_tpu_torch.render'\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def _jax_package_names() -> list:
+    """The names flux_tpu/__init__.py exports: what it imports from its
+    modules, and the submodules its ``__getattr__`` loads lazily."""
+    src = (REPO / "flux_tpu" / "__init__.py").read_text()
+    names = [n.strip() for line in re.findall(r"^from \.\w* import ([\w, ]+)", src, re.M) for n in line.split(",")]
+    lazy = re.search(r"if name in \(([^)]*)\)", src).group(1)
+    return names + re.findall(r'"(\w+)"', lazy)
+
+
+def test_package_level_names_resolve_to_their_namesakes():
+    """Every name flux_tpu exports at its top level resolves on the port,
+    to the port's object of the same name in the module of the same name."""
+    import importlib
+
+    import flux_tpu
+    import flux_tpu_torch
+
+    names = _jax_package_names()
+    assert len(names) == 17 and sorted(flux_tpu_torch.__all__) == sorted(names)
+    for name in names:
+        j_obj, obj = getattr(flux_tpu, name), getattr(flux_tpu_torch, name)
+        if isinstance(j_obj, types.ModuleType):
+            assert obj is importlib.import_module(f"flux_tpu_torch.{name}"), name
+        else:
+            module = "flux_tpu_torch" + j_obj.__module__[len("flux_tpu"):]
+            assert obj is getattr(importlib.import_module(module), name), name
+    assert flux_tpu_torch.Renderer is Renderer and flux_tpu_torch.compile_scene is compile_scene
+    with pytest.raises(AttributeError):
+        flux_tpu_torch.no_such_name
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

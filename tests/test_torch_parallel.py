@@ -12,10 +12,10 @@ against ``flux_tpu``'s eager ``render_block_impl`` at the port's tolerance
 """
 
 import os
-import select
 import signal
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import replace
 
@@ -451,11 +451,16 @@ def test_node_command_with_t(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "flux_tpu_torch.node", "-H", "127.0.0.1", "-p", str(port), "--device", "cpu",
          "-t", "2"], cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # A thread reads the node's output line by line: a select() on the pipe
+    # misses a line that a buffered readline() already took in with the one
+    # before it.
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(iter(proc.stdout.readline, "")), daemon=True)
+    reader.start()
     try:
-        lines, deadline = [], time.monotonic() + WAIT
+        deadline = time.monotonic() + WAIT
         while not any("listening" in ln for ln in lines) and time.monotonic() < deadline:
-            if select.select([proc.stdout], [], [], 1.0)[0]:
-                lines.append(proc.stdout.readline())
+            time.sleep(0.05)
         assert any("serving 2 of 2 local devices (cpu" in ln for ln in lines), lines
         net = net_worker(f"127.0.0.1:{port}")
         try:
@@ -465,9 +470,12 @@ def test_node_command_with_t(tmp_path):
             net.stop()
         assert handle.ok
         proc.send_signal(signal.SIGTERM)
-        out, _ = proc.communicate(timeout=WAIT)
+        proc.wait(timeout=WAIT)
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate(timeout=WAIT)
+            proc.wait(timeout=WAIT)
+        reader.join(timeout=WAIT)
+    assert not reader.is_alive()
+    out = "".join(lines)
     assert proc.returncode == 0, out

@@ -45,6 +45,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SCENES = os.path.join(HERE, "..", "scenes")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The suite runs several workers on the CPU's cores, and PyTorch's
+    intra-op threads in each spin against the others' on the scan's many
+    small operations (the field96 golden took 173 s so under the tier-1
+    command). The results do not depend on the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _field96_with_twins():
     """sphere_field(96, seed=7) plus two identical matte spheres in view
     (equal t on every ray that hits them: the lower index must win)."""
@@ -432,3 +446,128 @@ def test_packed_sphere_table_and_scan_scene_record():
     assert scene_kernel.pack_geom(r.scene, r.isect, None, "cpu")[0].sph_walk == 2
     assert scene_kernel.pack_geom(r.scene, r.isect, None, "cpu", scan_skip=False)[0].sph_walk == 0
     assert scene_kernel.config_name("scan", False, True, True, False) == "scan+nee+stats"
+
+
+# ---- Intersector(mode="scan_carry"): flux_tpu's carried scan, which the port's scan already is
+
+
+def _hit_fields(h):
+    return (h.mask, h.t, h.shape, h.kind, h.exponent, *h.point, *h.normal, *h.albedo)
+
+
+def test_scan_carry_matches_jax_and_equals_the_scan(field):
+    """Intersector(mode="scan_carry") and its .occluded against flux_tpu's
+    intersect_scan_carry and Intersector(mode="scan_carry").occluded (camera
+    rays and rays leaving surfaces; the any-hit mask toward far points), at
+    the gates of the scan's tests; inside the port it is the scan, bit for
+    bit."""
+    _, jsc, sc, jl, tl, (o, d), (p, pd, prev) = field
+    o, d = np.concatenate([o, p]), np.concatenate([d, pd])
+    prev = np.concatenate([np.full(256, -1, np.int32), prev])
+    carry, scan = ti.Intersector(layout=tl, mode="scan_carry"), ti.Intersector(layout=tl, mode="scan")
+    assert carry.scans and scan.scans and not ti.Intersector().scans
+    assert ti.intersect_scan_carry is ti.intersect_scan
+    to, td, tprev = tv(*o.T), tv(*d.T), torch.from_numpy(prev)
+    h = carry(sc, to, td, prev=tprev)
+    with jax.disable_jit():
+        jh = ji.intersect_scan_carry(jsc, jv(*o.T), jv(*d.T), layout=jl, prev=jnp.asarray(prev))
+    _compare_hits(h, jh, min_agree=0.995)
+    for a, b in zip(_hit_fields(h), _hit_fields(scan(sc, to, td, prev=tprev))):
+        assert torch.equal(a, b)
+    n = len(p)
+    t_max = np.random.default_rng(6).uniform(0.5, 30.0, n).astype(np.float32)
+    excl = np.zeros(n, np.int32)
+    with jax.disable_jit():
+        want = np_(ji.Intersector(layout=jl, mode="scan_carry").occluded(
+            jsc, jv(*p.T), jv(*pd.T), jnp.asarray(t_max), jnp.asarray(excl), origin_idx=jnp.asarray(prev[256:])))
+    args = (sc, tv(*p.T), tv(*pd.T), torch.from_numpy(t_max), torch.from_numpy(excl))
+    got = carry.occluded(*args, origin_idx=torch.from_numpy(prev[256:]))
+    assert (got.numpy() == want).mean() >= 0.995 and 0.02 < want.mean() < 0.98
+    assert torch.equal(got, scan.occluded(*args, origin_idx=torch.from_numpy(prev[256:])))
+
+
+def test_scan_carry_equal_t_tie_keeps_the_lowest_index():
+    """tests/test_ops.py's tie: two spheres tangent to one ray at the same
+    t, 40 far spheres so the scan sorts something; the sweep, the scan and
+    scan_carry all keep shape 0, at the sweep's t."""
+    r = float(np.sqrt(2.0))
+    matte = MaterialData(kind=MaterialKind.MATTE, color=(0.5, 0.5, 0.5), param=1.0)
+    shapes = [SphereData(center=(1.0, 1.0, 5.0), radius=r, material=matte),
+              SphereData(center=(-1.0, -1.0, 5.0), radius=r,
+                         material=MaterialData(kind=MaterialKind.MATTE, color=(1, 0, 0), param=1.0))]
+    rng = np.random.default_rng(0)
+    shapes += [SphereData(center=tuple(rng.uniform(50, 60, 3)), radius=0.1, material=matte) for _ in range(40)]
+    sd = genscene.sphere_field(0, seed=1)
+    sc = carry_scene(_jax_scene(dataclasses.replace(sd, shapes=tuple(shapes))))
+    o, d = tv(0.0, 0.0, 0.0), tv(0.0, 0.0, 1.0)
+    sweep = ti.intersect(sc, o, d)
+    for mode in ("scan", "scan_carry"):
+        h = ti.Intersector(layout=ti.scan_layout(sc), mode=mode)(sc, o, d)
+        assert int(h.shape[0]) == int(sweep.shape[0]) == 0 and bool(h.mask[0])
+        assert torch.equal(h.t, sweep.t)
+
+
+def test_scan_carry_on_a_12_triangle_mesh():
+    """tests/test_trimesh.py's paths-agree case on a box of 12 triangles
+    with a sphere and a plane, 128 rays: the port's sweep, scan and
+    scan_carry give one hit record (t and mask on every lane; shape, kind
+    and normal on hit lanes) and match flux_tpu's intersect_scan_carry."""
+    from flux_tpu_torch import meshgen
+    from flux_tpu_torch.scene import PlaneData
+
+    red = MaterialData(kind=MaterialKind.MATTE, color=(0.8, 0.1, 0.1), param=1.0)
+    v, f = meshgen.box()
+    assert len(f) == 12
+    shapes = (SphereData(center=(2.0, 0.0, 2.0), radius=1.0, material=red),
+              PlaneData(point=(0.0, -3.0, 0.0), normal=(0.0, 1.0, 0.0), material=red),
+              *meshgen.mesh_triangles(v, f, red, scale=2.0, offset=(-1.0, 0.5, -2.0)))
+    sd = dataclasses.replace(genscene.sphere_field(0, seed=1), shapes=shapes)
+    jsc = _jax_scene(sd)
+    sc = carry_scene(jsc)
+    assert sc.num_triangles == 12
+    rng = np.random.default_rng(11)
+    o = rng.uniform(-8, 8, size=(128, 3)).astype(np.float32)
+    d = unit_dirs(rng, 128)
+    to, td = tv(*o.T), tv(*d.T)
+    a = ti.intersect(sc, to, td)
+    hit = a.mask.numpy()
+    assert 0.1 < hit.mean() and (a.shape.numpy()[hit] >= 2).any()  # some lanes hit the box
+    for mode in ("scan", "scan_carry"):
+        b = ti.Intersector(layout=ti.scan_layout(sc), mode=mode)(sc, to, td)
+        assert torch.equal(a.t, b.t) and torch.equal(a.mask, b.mask)
+        for x, y in [(a.shape, b.shape), (a.kind, b.kind), *zip(a.normal, b.normal)]:
+            assert torch.equal(x[a.mask], y[b.mask])
+    with jax.disable_jit():
+        jh = ji.intersect_scan_carry(jsc, jv(*o.T), jv(*d.T))
+    _compare_hits(ti.Intersector(layout=ti.scan_layout(sc), mode="scan_carry")(sc, to, td), jh, min_agree=0.995)
+
+
+def test_scan_carry_through_the_scene_kernels_wrapper():
+    """The scene megakernel's wrapper takes a scan_carry intersector as the
+    scan: on the CPU its band is the scan intersector's bits; its launch
+    would be counted under ``scan``; the launch's geometry and tables are
+    the scan's. The renderer and the mesh renderer keep refusing the accel,
+    as flux_tpu's do."""
+    sd = genscene.sphere_field(24, seed=2, width=32, height=16, emissive_fraction=0.2)
+    sd = dataclasses.replace(sd, output_settings=dataclasses.replace(sd.output_settings, pixel_size=25.0))
+    from flux_tpu_torch.parallel import MeshRenderer, make_mesh
+
+    with pytest.raises(ValueError, match="scan_carry"):
+        Renderer(sd, 2, 3, device="cpu", accel="scan_carry")
+    with pytest.raises(ValueError, match="scan_carry"):
+        MeshRenderer(sd, 2, 3, mesh=make_mesh([torch.device("cpu")] * 2, rows_shards=2), accel="scan_carry")
+    r = Renderer(sd, 2, 3, seed=9, device="cpu", accel="scan")
+    carry = dataclasses.replace(r.isect, mode="scan_carry")
+    kw = dict(img_w=32, img_h=16, n_rows=16, n_samples=4, root=2, max_depth=3, with_stats=True)
+    a = scene_kernel.render_block_scene(r.scene, r.cam, 0, 0, 9, isect=carry, **kw)
+    b = scene_kernel.render_block_scene(r.scene, r.cam, 0, 0, 9, isect=r.isect, **kw)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32)) and a[..., :3].max() > 0
+    for lights, physical, want in ((None, False, "scan"), (None, True, "scan+physical")):
+        for stats in (False, True):
+            name = scene_kernel.launch_config(r.scene, carry, stats, lights, physical)
+            assert name == scene_kernel.launch_config(r.scene, r.isect, stats, lights, physical)
+            assert name == want + "+stats" * stats
+    g_carry, _ = scene_kernel.pack_geom(r.scene, carry, None, "cpu")
+    g_scan, _ = scene_kernel.pack_geom(r.scene, r.isect, None, "cpu")
+    assert g_carry.scan == g_scan.scan == 1 and bytes(g_carry) == bytes(g_scan)
+    assert scene_kernel.table_bytes(carry, None, 25, r.scene) == scene_kernel.table_bytes(r.isect, None, 25, r.scene)
