@@ -1,0 +1,8 @@
+"""The share of the traced window of previews in which no kernel, copy or
+set ran on the device, in %."""
+
+from benchmark.readers import idle_pct
+
+
+def read(run):
+    return idle_pct(run) if getattr(run, "frames", None) else None
