@@ -35,6 +35,7 @@ import numpy as np
 from .debug import d_println
 from .image import Image, write_png, write_ppm
 from .job import Job, JobConfiguration, JobID, JobIDAllocator, WorkUnit
+from .metrics import record, stamp
 from .scene import SceneData
 
 __all__ = [
@@ -147,8 +148,9 @@ class WorkerHandle:
     """Typed sender of work requests to a worker loop (manager.rs:38-53).
 
     A request is ``None`` (shutdown) or ``(job, unit_queue, event_sink,
-    waitgroup)``; the worker pulls WorkUnits from ``unit_queue`` until it
-    yields ``None``.
+    waitgroup, sent)``; the worker pulls WorkUnits from ``unit_queue`` until
+    it yields ``None``. ``sent`` is the :func:`~flux_tpu_torch.metrics.stamp`
+    of the send, which starts the worker's ``worker.queue_wait`` span.
     """
 
     _uid_seq = itertools.count()
@@ -166,7 +168,7 @@ class WorkerHandle:
     def send(self, job: Job, unit_queue, event_sink, wg: WaitGroup) -> None:
         if self._dead.is_set():
             raise RuntimeError(f"worker {self.name} is stopped")
-        self._q.put((job, unit_queue, event_sink, wg))
+        self._q.put((job, unit_queue, event_sink, wg, stamp()))
 
     def send_stop(self) -> None:
         self._dead.set()
@@ -393,10 +395,14 @@ class RenderManager:
         self._workers = workers
         self._allocator = JobIDAllocator()
         self._job_queue: "queue.Queue" = queue.Queue()
+        self._released = None  # stamp() of the last round's barrier release
         self._thread = threading.Thread(target=self._run, name="RenderManager", daemon=True)
         self._thread.start()
 
-    # The scheduler loop: one job at a time, in submission order.
+    # The scheduler loop: one job at a time, in submission order. Its spans:
+    # manager.queue_wait (schedule_job's put to the take), manager.dispatch
+    # (through the sends of each round) and manager.finish (a round's barrier
+    # released, through the handle set done).
     def _run(self) -> None:
         d_println("Render manager: awaiting job")
         while True:
@@ -404,24 +410,32 @@ class RenderManager:
             if item is None:
                 d_println("Render manager: shutting down")
                 return
-            job, handle, cancel, sink = item
+            job, handle, cancel, sink, put = item
+            record("manager.queue_wait", put, job.id)
             d_println(f"Render manager: got job {job.id}")
+            self._released = None
             try:
                 self._run_job(job, cancel, sink, handle)
             except Exception as e:  # worker failure — record it, serve on
                 d_println(f"Render manager: job {job.id} failed: {e!r}")
                 handle.error = f"{type(e).__name__}: {e}"
             handle._done.set()
+            record("manager.finish", self._released, job.id)
 
-    def _dispatch_round(self, job: Job, units, cancel, tracker) -> "SchedulerRound":
+    def _dispatch_round(self, job: Job, units, cancel, tracker, start=None) -> "SchedulerRound":
         """One pull-dispatch round over the currently-alive workers — the
         reference's bounded(1) shared queue + cancellable producer + barrier
         (manager.rs:100-166), run by ``sched.SchedulerRound`` on the native
         scheduler core (``csrc/fluxnative.cpp``). The round object is both
         the unit queue workers drain and the wait group the manager blocks
         on; the caller closes it once it has read ``missing()`` (no worker
-        touches a round after its barrier is released)."""
+        touches a round after its barrier is released). The round's
+        ``manager.dispatch`` span runs from ``start`` (a
+        :func:`~flux_tpu_torch.metrics.stamp`, by default this call's) through
+        the sends."""
         from .sched import SchedulerRound
+
+        start = stamp() if start is None else start
 
         workers = [w for w in self._workers if w.alive]
         if not workers:
@@ -447,15 +461,18 @@ class RenderManager:
                 sent += 1
             except RuntimeError:
                 rnd.done()
+        record("manager.dispatch", start, job.id)
         if sent == 0:
             rnd.close()
             raise RuntimeError("no alive workers")
 
         d_println("Render manager: waiting for job completion or cancellation")
         rnd.wait()
+        self._released = stamp()
         return rnd
 
     def _run_job(self, job: Job, cancel: threading.Event, sink, handle: JobHandle) -> None:
+        start = stamp()
         sink.put(
             ImageInfo(
                 scene_name=job.scene_data.scene_name,
@@ -476,7 +493,7 @@ class RenderManager:
         )
 
         try:
-            rnd = self._dispatch_round(job, units, cancel, tracker)
+            rnd = self._dispatch_round(job, units, cancel, tracker, start)
 
             # Fault tolerance the reference lacks (it panics on a dead
             # worker, manager.rs:158-161): units lost to failed workers are
@@ -529,7 +546,7 @@ class RenderManager:
         done = threading.Event()
         cancel = threading.Event()
         handle = JobHandle(job.id, done, cancel)
-        self._job_queue.put((job, handle, cancel, result_sink))
+        self._job_queue.put((job, handle, cancel, result_sink, stamp()))
         return handle
 
     def stop(self) -> None:

@@ -1,129 +1,236 @@
-"""Metrics, progress reporting and profiling hooks (``flux_tpu/metrics.py``).
+"""The program's spans, and the profiling hook
+(``flux_tpu/metrics.py``).
 
 The reference's observability is ``d_println`` timestamps plus wall-clock
-prints from the event sinks. Here the same event stream (``manager.py``)
-feeds a structured :class:`ProgressReporter` — rows done, sample
-throughput, ETA — and :func:`profile_trace` wraps ``torch.profiler`` so that
-a render can be captured as a Chrome trace (Perfetto readable) without
-touching renderer code.
+prints from the event sinks. Here:
+
+* :func:`span` (a context manager) and :func:`stamp`/:func:`record` (a span
+  whose start another thread took) time the job path's host work on the
+  threads that do it: the manager, the workers, the kernel launches. They
+  record only while a ``torch.profiler`` window is open anywhere in the
+  process, which is what ``torch.autograd.profiler._is_profiler_enabled``
+  says on every thread; the profiler itself records host work only on the
+  thread that opened it. Outside a window a span site reads that flag and
+  nothing else: no clock, no allocation.
+* :func:`profile_trace` wraps ``torch.profiler`` so that a render is
+  captured as a Chrome trace (Perfetto readable), the program's spans on
+  each thread's track among the profiler's own events, on its clock.
+
+A span's times are ``time.perf_counter_ns()``; :func:`clock_offset_ns` moves
+them onto the Unix-epoch nanoseconds that the profiler stamps host events
+with.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
-import queue
 import threading
 import time
+from typing import NamedTuple, Optional
 
-import numpy as np
-from dataclasses import dataclass
-from typing import Optional
+import torch.autograd.profiler as _profiler
 
-from .manager import ImageInfo, RenderingFinished, RenderingStarted, RowsReady
+__all__ = ["Span", "span", "stamp", "record", "spans", "clear", "clock_offset_ns", "profile_trace"]
 
-__all__ = ["RenderStats", "ProgressReporter", "profile_trace"]
-
-
-@dataclass
-class RenderStats:
-    """Aggregated statistics of one render job."""
-
-    scene_name: str = ""
-    width: int = 0
-    height: int = 0
-    sample_root: int = 0
-    rows_done: int = 0
-    units_done: int = 0
-    start_monotonic: Optional[float] = None
-    end_monotonic: Optional[float] = None
-
-    @property
-    def duration(self) -> Optional[float]:
-        if self.start_monotonic is None:
-            return None
-        end = self.end_monotonic if self.end_monotonic is not None else time.monotonic()
-        return end - self.start_monotonic
-
-    @property
-    def fraction_done(self) -> float:
-        return self.rows_done / self.height if self.height else 0.0
-
-    def samples_per_sec(self) -> Optional[float]:
-        """Primary-sample throughput so far (needs sample_root)."""
-        d = self.duration
-        if not d or not self.sample_root:
-            return None
-        return self.rows_done * self.width * self.sample_root**2 / d
-
-    def eta_seconds(self) -> Optional[float]:
-        d = self.duration
-        if not d or not self.rows_done or not self.height:
-            return None
-        return d * (self.height - self.rows_done) / self.rows_done
+# The process-wide flag that torch.profiler.profile sets when its window
+# starts and clears when it stops (the thread-local
+# torch.autograd._profiler_enabled() reads False on other threads).
+PROFILER_FLAG = "_is_profiler_enabled"
 
 
-class ProgressReporter:
-    """Event sink computing live throughput/ETA; optionally prints a line
-    per work unit (the structured upgrade of ConsoleResultReporter)."""
+class Span(NamedTuple):
+    """One recorded span. ``parent`` is the ``id`` of the span that enclosed
+    it on its thread, None for a thread's outermost span, whose parent is
+    the job."""
 
-    def __init__(self, sample_root: int = 0, print_progress: bool = False):
-        self.stats = RenderStats(sample_root=sample_root)
-        self._print = print_progress
-        self._q: "queue.Queue" = queue.Queue()
-        self._lock = threading.Lock()
-        self._thread = threading.Thread(target=self._run, name="ProgressReporter", daemon=True)
-        self._thread.start()
+    id: int
+    name: str
+    start_ns: int  # time.perf_counter_ns()
+    end_ns: int
+    thread: int  # threading.get_native_id()
+    thread_ident: int  # threading.get_ident(), the pthread id
+    thread_name: str
+    job: object  # the JobID, shared by every span of one job
+    parent: Optional[int]
+    attrs: dict
 
-    def sender(self) -> "queue.Queue":
-        return self._q
 
-    def snapshot(self) -> RenderStats:
-        with self._lock:
-            return RenderStats(**vars(self.stats))
+class _Open:
+    """A span being timed; the context :func:`span` returns while recording."""
 
-    def _run(self) -> None:
-        while True:
-            ev = self._q.get()
-            if ev is None:
-                return
-            with self._lock:
-                s = self.stats
-                if isinstance(ev, ImageInfo):
-                    s.scene_name, s.width, s.height = ev.scene_name, ev.width, ev.height
-                    s.rows_done = s.units_done = 0
-                    s.start_monotonic = s.end_monotonic = None
-                elif isinstance(ev, RenderingStarted):
-                    s.start_monotonic = ev.monotonic
-                elif isinstance(ev, RowsReady):
-                    # Count only FULL blocks (a short block from a dying
-                    # node is retried, and counting it would double rows).
-                    # Short blocks are retried, so counting them would also
-                    # double-count the unit when the full retry lands.
-                    if (
-                        np.shape(ev.result.rows)[0]
-                        == ev.result.work_unit.num_rows
-                    ):
-                        s.rows_done += ev.result.work_unit.num_rows
-                        s.units_done += 1
-                    if self._print:
-                        sps = s.samples_per_sec()
-                        eta = s.eta_seconds()
-                        extra = ""
-                        if sps:
-                            extra = f", {sps / 1e6:.1f} Msamples/s"
-                        if eta is not None:
-                            extra += f", ETA {eta:.1f}s"
-                        print(
-                            f"progress: {s.rows_done}/{s.height} rows"
-                            f" ({100 * s.fraction_done:.0f}%){extra}"
-                        )
-                elif isinstance(ev, RenderingFinished):
-                    s.end_monotonic = ev.monotonic
+    __slots__ = ("name", "job", "attrs", "id", "parent", "start_ns")
 
-    def stop(self) -> None:
-        self._q.put(None)
-        self._thread.join(timeout=10)
+    def __init__(self, name: str, job):
+        self.name, self.job, self.attrs = name, job, None
+
+    def set(self, key: str, value) -> None:
+        """Attach an attribute (kept in ``Span.attrs``)."""
+        if self.attrs is None:
+            self.attrs = {}
+        self.attrs[key] = value
+
+    def __enter__(self):
+        stack = _stack()
+        outer = stack[-1] if stack else None
+        self.parent = None if outer is None else outer.id
+        if self.job is None and outer is not None:
+            self.job = outer.job
+        self.id = _begin()
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.perf_counter_ns()
+        _stack().pop()
+        t = threading.current_thread()
+        _SPANS.append(Span(self.id, self.name, self.start_ns, end, t.native_id, t.ident, t.name, self.job,
+                           self.parent, self.attrs or {}))
+        return False
+
+
+class _Off:
+    """The shared context a span site gets outside a profiler window."""
+
+    __slots__ = ()
+
+    def set(self, key: str, value) -> None:
+        pass
+
+    def __bool__(self) -> bool:
+        return False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+_SPANS: list = []
+_LOCAL = threading.local()
+_ids = itertools.count()
+_offset_ns: Optional[int] = None
+
+
+def _stack() -> list:
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+    return stack
+
+
+def _begin() -> int:
+    """A new span's id; the first span after :func:`clear` also takes the
+    clock offset (two threads that both take it get the same value)."""
+    global _offset_ns
+    if _offset_ns is None:
+        _offset_ns = _measure_offset()
+    return next(_ids)
+
+
+def _measure_offset(pairs: int = 5) -> int:
+    """``time.time_ns() - time.perf_counter_ns()`` from the tightest of a
+    few back-to-back readings."""
+    best = None
+    for _ in range(pairs):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, wall - (a + b) // 2)
+    return best[1]
+
+
+def span(name: str, job=None):
+    """A context manager timing its block as the span ``name`` of ``job``
+    (by default the job of the enclosing span on this thread). The context
+    it yields takes attributes with ``.set(key, value)`` and is false
+    outside a profiler window, where nothing is recorded."""
+    if not getattr(_profiler, PROFILER_FLAG, False):
+        return _OFF
+    return _Open(name, job)
+
+
+def stamp() -> Optional[int]:
+    """The start of a span that :func:`record` ends, perhaps on another
+    thread: the clock while recording, else None."""
+    return time.perf_counter_ns() if getattr(_profiler, PROFILER_FLAG, False) else None
+
+
+def record(name: str, start_ns: Optional[int], job=None) -> None:
+    """Record the span ``name`` from ``start_ns`` (:func:`stamp`) to now on
+    this thread; nothing where the stamp is None or no window is open."""
+    if start_ns is None or not getattr(_profiler, PROFILER_FLAG, False):
+        return
+    end = time.perf_counter_ns()
+    stack = _stack()
+    outer = stack[-1] if stack else None
+    if job is None and outer is not None:
+        job = outer.job
+    t = threading.current_thread()
+    _SPANS.append(Span(_begin(), name, start_ns, end, t.native_id, t.ident, t.name, job,
+                       None if outer is None else outer.id, {}))
+
+
+def spans() -> list:
+    """The spans recorded since :func:`clear`, each as it ended."""
+    return list(_SPANS)
+
+
+def clear() -> None:
+    """Forget the recorded spans; the next span measures the clock offset
+    again."""
+    global _offset_ns
+    _SPANS.clear()
+    _offset_ns = None
+
+
+def clock_offset_ns() -> Optional[int]:
+    """What to add to a span's ``perf_counter_ns`` times to get the Unix-epoch
+    nanoseconds of the profiler's host events; None before the first span."""
+    return _offset_ns
+
+
+def _track(s: Span, used: set) -> int:
+    """The tid of ``s``'s thread in a trace whose events use the tids
+    ``used``: its native id where the profiler recorded the thread's host
+    events, else the tid under which the profiler put the thread's CUDA
+    runtime calls (the low 32 bits of its pthread id as a signed number,
+    without the sign, in torch 2.11), else its native id."""
+    low = s.thread_ident & 0xFFFFFFFF
+    signed = low - (1 << 32) if low >= 1 << 31 else low
+    return next((tid for tid in (s.thread, abs(signed), signed, low) if tid in used), s.thread)
+
+
+def _write_spans(path: str, recorded: list) -> None:
+    """Add ``recorded`` to the Chrome trace at ``path``: complete events on
+    their threads' tracks, moved onto the trace's clock (the profiler
+    writes microseconds from its ``baseTimeNanoseconds``)."""
+    if not recorded or _offset_ns is None:
+        return
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc.setdefault("traceEvents", [])
+    pid = os.getpid()
+    shift = _offset_ns - int(doc.get("baseTimeNanoseconds", 0))
+    used = {e.get("tid") for e in events if e.get("ph") == "X"}
+    named = {e.get("tid") for e in events if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    tracks = {}
+    for s in recorded:
+        tid = tracks.setdefault(s.thread, _track(s, used))
+        if tid not in named:
+            named.add(tid)
+            events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid, "args": {"name": s.thread_name}})
+        args = {"span": s.id, "parent": s.parent, "job": None if s.job is None else str(s.job), **s.attrs}
+        events.append({"ph": "X", "cat": "flux", "name": s.name, "pid": pid, "tid": tid,
+                       "ts": (s.start_ns + shift) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3, "args": args})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @contextlib.contextmanager
@@ -131,9 +238,10 @@ def profile_trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of everything inside the block:
     host operations, and on a CUDA card the kernels and copies of every
     thread of the process (CUPTI sees the megakernels, which are launched
-    through ctypes and not through PyTorch). Writes
-    ``<log_dir>/trace-<pid>-<ms>.json`` (Chrome trace format) when the
-    block ends; yields the profiler, whose ``trace_path`` is set then."""
+    through ctypes and not through PyTorch), with the program's spans on
+    the threads that ran them. Writes ``<log_dir>/trace-<pid>-<ms>.json``
+    (Chrome trace format) when the block ends; yields the profiler, whose
+    ``trace_path`` is set then."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,8 +251,10 @@ def profile_trace(log_dir: str):
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=activities)
     prof.trace_path = None
+    clear()
     with prof:
         yield prof
     path = os.path.join(log_dir, f"trace-{os.getpid()}-{int(time.time() * 1000)}.json")
     prof.export_chrome_trace(path)
+    _write_spans(path, spans())
     prof.trace_path = path

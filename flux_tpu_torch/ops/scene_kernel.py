@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..camera import CameraTensors
+from ..metrics import span
 from ..samplers.hash import MASK
 from ..scene import SceneTensors
 from . import build
@@ -443,14 +444,17 @@ def table_bytes(isect: Intersector, lights: Optional[LightTensors], n_shapes: in
     return total
 
 
-def _device_table(host: dict, dev: torch.device, pack, *what):
+def _device_table(host: dict, dev: torch.device, table: str, pack, *what):
     """(tensor on ``dev``, offsets) of a packed table, built once and kept
     beside the host arrays it was packed from; ``what`` names whatever else
-    the packing depends on."""
+    the packing depends on. A build is the span ``kernel.pack_tables``,
+    with ``table`` as its attribute."""
     key = ("table", str(dev), *what)
     if key not in host:
-        buf, offsets = pack()
-        host[key] = (torch.from_numpy(buf).to(dev), offsets)
+        with span("kernel.pack_tables") as sp:
+            sp.set("table", table)
+            buf, offsets = pack()
+            host[key] = (torch.from_numpy(buf).to(dev), offsets)
     return host[key]
 
 
@@ -542,16 +546,16 @@ def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTen
     if scan:
         if isect.layout is None:
             raise ValueError("an Intersector in scan mode needs its ScanLayout")
-        point(*_device_table(isect.layout.host, dev, lambda: pack_sphere_table(isect.layout)))
+        point(*_device_table(isect.layout.host, dev, "spheres", lambda: pack_sphere_table(isect.layout)))
         geom.n_sph_blocks = isect.layout.n_blocks
         geom.sph_block_leaves = 1 << max(isect.layout.n_blocks - 1, 0).bit_length()
     if scene.num_planes > MAX_PLANES:  # else they ride in the constant record
-        point(*_device_table(scene.host, dev, lambda: pack_plane_table(scene, not scan), "planes", scan))
+        point(*_device_table(scene.host, dev, "planes", lambda: pack_plane_table(scene, not scan), "planes", scan))
     nt = scene.num_triangles
     if nt:
         if isect.tri_layout is None:
             raise ValueError("a scene with triangles needs the Intersector's TriLayout")
-        point(*_device_table(isect.tri_layout.host, dev, lambda: pack_tri_table(isect.tri_layout)))
+        point(*_device_table(isect.tri_layout.host, dev, "triangles", lambda: pack_tri_table(isect.tri_layout)))
         geom.n_tri_blocks = isect.tri_layout.n_blocks
         geom.tri_block_leaves = 1 << max(isect.tri_layout.n_blocks - 1, 0).bit_length()
         _, _, geom.tri_bin_grid, rcap = tri_bins(isect.tri_layout)
@@ -560,7 +564,7 @@ def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTen
     if lights is not None:
         n_shapes = ns + npl + nt
         # light_of spans the scene's shapes: one table per shape count.
-        point(*_device_table(lights.host, dev, lambda: pack_light_table(lights, n_shapes), n_shapes))
+        point(*_device_table(lights.host, dev, "lights", lambda: pack_light_table(lights, n_shapes), n_shapes))
         geom.n_lights = lights.num_lights
         geom.lights_have_tris = int(lights.has_tris)
     geom.scan = int(scan)

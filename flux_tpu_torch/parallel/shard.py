@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..metrics import span
 from ..render import Renderer, finalize
 from ..scene import SceneData
 from .mesh import DeviceMesh, make_mesh
@@ -131,8 +132,9 @@ class MeshRenderer:
 
     def render_rows(self, row0: int, n_rows: int) -> np.ndarray:
         """Final (averaged, tone-mapped) pixels for rows [row0, row0+n_rows)."""
-        img = finalize(self.render_rows_sum(row0, n_rows), root=self.root)
-        return img.cpu().numpy()
+        acc = self.render_rows_sum(row0, n_rows)
+        with span("unit.readback"):
+            return finalize(acc, root=self.root).cpu().numpy()
 
     def render_rows_local(self, row0: int, n_rows: int) -> Tuple[np.ndarray, np.ndarray]:
         """The rows of a band that this process's row shards rendered:

@@ -24,6 +24,7 @@ samples of a pixel are summed.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -32,6 +33,7 @@ import torch
 from .camera import CameraTensors, camera_tensors, primary_rays
 from .color import luminance, max_to_one
 from .constants import SALT_AA, SALT_BOUNCE, SALT_LENS, SALT_NEE, SALT_NEEPICK
+from .metrics import span
 from .ops.intersect import Intersector, scan_layout, tri_layout
 from .ops.nee import LightTensors, extract_lights
 from .ops.shade import PathState, bounce
@@ -292,32 +294,47 @@ class Renderer:
             extra["split"] = launch_plan(band_rows * self.width, n_samples).split
         acc = None
         for off, n in plan_chunks(n_samples, self._chunk_size(band_rows, n_samples)):
-            part = kernel(
-                self.scene,
-                self.cam,
-                row0,
-                s0 + off,
-                self.seed,
-                img_w=self.width,
-                img_h=self.height,
-                n_rows=n_rows,
-                n_samples=n,
-                root=self.root,
-                max_depth=self.max_depth,
-                s_limit=s_limit,
-                row_stride=row_stride,
-                with_stats=with_stats,
-                lights=self.lights,
-                physical=self.physical,
-                **extra,
-            )
+            # On the card the call is the wrapper's host work up to the launch
+            # queued (the tables packed on a first launch among it): the span
+            # kernel.launch. On the CPU it is the plain render, no launch.
+            with span("kernel.launch") if self.device.type == "cuda" else contextlib.nullcontext() as sp:
+                if sp:
+                    sp.set("config", self._launch_config(with_stats))
+                part = kernel(
+                    self.scene,
+                    self.cam,
+                    row0,
+                    s0 + off,
+                    self.seed,
+                    img_w=self.width,
+                    img_h=self.height,
+                    n_rows=n_rows,
+                    n_samples=n,
+                    root=self.root,
+                    max_depth=self.max_depth,
+                    s_limit=s_limit,
+                    row_stride=row_stride,
+                    with_stats=with_stats,
+                    lights=self.lights,
+                    physical=self.physical,
+                    **extra,
+                )
             acc = part if acc is None else acc + part
         return acc
 
+    def _launch_config(self, with_stats: bool) -> str:
+        """The configuration a band's launch is counted under."""
+        from .ops import scene_kernel, sweep_kernel
+
+        if self.uses_sweep_kernel:
+            return sweep_kernel.config_name(with_stats, self.nee, self.physical)
+        return scene_kernel.launch_config(self.scene, self.isect, with_stats, self.lights, self.physical)
+
     def render_rows(self, row0: int, n_rows: int) -> np.ndarray:
         """Final (averaged, tone-mapped) pixels for rows [row0, row0+n_rows)."""
-        img = finalize(self.render_rows_sum(row0, n_rows), root=self.root)
-        return img.cpu().numpy()
+        acc = self.render_rows_sum(row0, n_rows)
+        with span("unit.readback"):
+            return finalize(acc, root=self.root).cpu().numpy()
 
     def render_image(self, rows_per_band: Optional[int] = None) -> np.ndarray:
         """Render the full frame, band by band."""

@@ -30,6 +30,7 @@ from .manager import (
     WorkUnitResult,
 )
 from . import wire
+from .metrics import record, span
 from .render import resolve_device
 
 __all__ = ["LocalWorker", "NetworkWorker", "default_renderer_factory"]
@@ -130,18 +131,25 @@ class LocalWorker:
             if req is None:
                 d_println("LocalWorker: shutting down")
                 return
-            job, unit_queue, sink, wg = req
+            job, unit_queue, sink, wg, sent = req
+            record("worker.queue_wait", sent, job.id)
             d_println(f"LocalWorker: got job {job.id}")
             self._busy.set()
             try:
-                renderer = self._factory(job)
+                with span("worker.renderer_build", job.id):
+                    renderer = self._factory(job)
                 while True:
-                    unit = unit_queue.get()
+                    with span("sched.pull", job.id):
+                        unit = unit_queue.get()
                     if unit is None:
                         break
-                    d_println(f"LocalWorker: rendering {unit}")
-                    rows = renderer.render_rows(unit.row_start, unit.num_rows)
-                    sink.put(RowsReady(WorkUnitResult(work_unit=unit, rows=rows)))
+                    with span("worker.unit", job.id) as sp:
+                        sp.set("row_start", unit.row_start)
+                        sp.set("rows", unit.num_rows)
+                        d_println(f"LocalWorker: rendering {unit}")
+                        rows = renderer.render_rows(unit.row_start, unit.num_rows)
+                        with span("unit.deliver"):
+                            sink.put(RowsReady(WorkUnitResult(work_unit=unit, rows=rows)))
                     self.units_done += 1
             except Exception as e:
                 # Keep serving future jobs (the manager retries lost units);
@@ -225,7 +233,7 @@ class NetworkWorker:
                 except OSError:
                     pass
                 return
-            job, unit_queue, sink, wg = req
+            job, unit_queue, sink, wg, _ = req
             try:
                 self._run_job(job, unit_queue, sink)
             except _NodeJobError as e:

@@ -555,3 +555,49 @@ def test_strided_masked_launch_matches_plain(card, name, nee, physical, stats):
     assert torch.equal(shard.view(torch.int32), band[1::4].contiguous().view(torch.int32))
     with pytest.raises(ValueError, match="split"):
         render_block_sweep(sc, cam, 281, 0, 11, n_samples=4, split=12, **kw)
+
+
+@pytest.mark.cuda
+def test_profile_dir_trace_holds_the_job_path_spans_on_the_card(card, tmp_path):
+    """The CLI's ``--profile-dir`` trace of a Cornell-box job on the card:
+    every span of the job path on the worker's track, one renderer build,
+    one pack of each table under the job's first launch, each launch under
+    its unit with the configuration it was counted under; every kernel
+    launch the profiler saw the worker make lies inside one of the worker's
+    ``kernel.launch`` spans, on the trace's clock."""
+    import collections
+    import json
+
+    from flux_tpu_torch import cli
+
+    launched = collections.Counter(render_block_scene.launches)
+    ran = cli.run([os.path.join(SCENES, "demo5.yml"), "-r", "2", "-d", "3", "--nee", "-R", "128",
+                   "--output-dir", str(tmp_path), "--profile-dir", str(tmp_path / "prof")])
+    assert ran["error"] is None
+    with open(ran["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    flux = [e for e in events if e.get("cat") == "flux"]
+    assert {e["name"] for e in flux} == {
+        "manager.queue_wait", "manager.dispatch", "manager.finish", "worker.queue_wait", "worker.renderer_build",
+        "sched.pull", "worker.unit", "kernel.launch", "kernel.pack_tables", "unit.readback", "unit.deliver"}
+    assert sum(e["name"] == "worker.renderer_build" for e in flux) == 1
+    by_id = {e["args"]["span"]: e for e in flux}
+    packs = [e for e in flux if e["name"] == "kernel.pack_tables"]
+    assert sorted(e["args"]["table"] for e in packs) == ["lights", "triangles"]
+    (first,) = {e["args"]["parent"] for e in packs}
+    assert by_id[first]["name"] == "kernel.launch"
+    launches = [e for e in flux if e["name"] == "kernel.launch"]
+    assert all(by_id[e["args"]["parent"]]["name"] == "worker.unit" for e in launches)
+    assert {e["args"]["config"] for e in launches} == {
+        k for k, n in render_block_scene.launches.items() if n > launched[k]}
+    (tid,) = {e["tid"] for e in flux if e["name"] == "worker.unit"}
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in launches if e["tid"] == tid]
+    runtime = {e["args"].get("correlation"): e for e in events if e.get("ph") == "X"
+               and e.get("cat") == "cuda_runtime"}
+    kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+               and "scene_megakernel" in e.get("name", "")]
+    assert len(kernels) == 4 == len(spans)
+    for k in kernels:
+        launch = runtime[k["args"]["correlation"]]
+        assert any(s <= launch["ts"] and launch["ts"] + launch["dur"] <= t for s, t in spans), (launch, spans)
+    assert {runtime[k["args"]["correlation"]]["tid"] for k in kernels} == {tid}

@@ -1,8 +1,8 @@
 """The port's job path on the CPU: jobs and work units, the scheduler round,
-the native host code, the Image store, the manager with local
-workers (events, retries, cancellation, failures), the progress reporter,
-and the CLI's job path (``-L``, ``--profile-dir``), held against
-``flux_tpu``'s job, image and scheduler where both packages have them.
+the native host code, the Image store, the manager with local workers
+(events, retries, cancellation, failures), and the CLI's job path (``-L``,
+``--profile-dir``), held against ``flux_tpu``'s job, image and scheduler
+where both packages have them.
 
 Every wait has a timeout, and every thread is joined with one."""
 
@@ -31,7 +31,6 @@ from flux_tpu_torch.manager import (
     RenderManager,
     RowsReady,
 )
-from flux_tpu_torch.metrics import ProgressReporter
 from flux_tpu_torch.ops import build
 from flux_tpu_torch.render import Renderer
 from flux_tpu_torch.scene import load_scene, loads_scene
@@ -396,22 +395,6 @@ def test_units_a_flaky_worker_lost_are_retried_on_the_survivor(tmp_path):
     assert any(isinstance(e, JobFailed) for e in evs)
     assert handle.retry_rounds == 1 and handle.retried_units == 1
     assert np.array_equal(img.pixels, band_loop(sd, cfg))
-
-
-def test_progress_reporter_counts_full_units(tmp_path):
-    rep = ProgressReporter(sample_root=2)
-    worker = LocalWorker(renderer_factory=cpu_factory, device="cpu")
-    try:
-        run_job([worker.handle()], tiny_scene(), JobConfiguration(2, 2, 5), tmp_path, [rep.sender()])
-        deadline = time.monotonic() + WAIT
-        while rep.snapshot().end_monotonic is None and time.monotonic() < deadline:
-            time.sleep(0.01)
-    finally:
-        rep.stop()
-        worker.stop()
-    s = rep.snapshot()
-    assert (s.width, s.height, s.rows_done, s.units_done) == (16, 12, 12, 3)
-    assert s.fraction_done == 1.0 and s.duration > 0 and s.samples_per_sec() > 0
 
 
 def test_debug_tracing_switch(capsys):
