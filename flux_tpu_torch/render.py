@@ -25,6 +25,7 @@ samples of a pixel are summed.
 from __future__ import annotations
 
 import contextlib
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -44,7 +45,7 @@ from .samplers.warps import to_poisson_disc
 from .scene import SceneData, SceneTensors, compile_scene
 from .vec import Vec3
 
-__all__ = ["render_block", "finalize", "plan_chunks", "resolve_device", "Renderer"]
+__all__ = ["render_block", "finalize", "plan_chunks", "resolve_device", "SceneState", "Renderer"]
 
 # Sphere count above which the Renderer picks the blocked scan over the
 # sweep. flux_tpu chose 64 for XLA's compile time (flux_tpu/render.py:50-52),
@@ -182,6 +183,77 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+@dataclass(frozen=True, eq=False)
+class SceneState:
+    """What a :class:`Renderer` derives from its scene alone, for one device,
+    ``accel`` and ``nee`` (the ones asked for, kept as ``asked``): the
+    compiled scene, the ``accel`` taken, the ``Intersector`` with its block
+    tables, the lights (None without NEE or without a light), the camera and
+    the frame's size. A launch packs its device tables from these objects and
+    keeps them in their ``host`` dicts, so the renderers built on one state
+    pack and copy each table once. Nothing in it depends on a job's sample
+    root, depth, seed or estimator."""
+
+    scene_data: SceneData
+    device: torch.device
+    asked: tuple  # (accel, nee) as given to build
+    scene: SceneTensors
+    accel: str
+    isect: Intersector
+    lights: Optional[LightTensors]
+    cam: CameraTensors
+    width: int
+    height: int
+
+    @classmethod
+    def build(cls, scene_data: SceneData, device=None, accel: Optional[str] = None,
+              nee: bool = False) -> "SceneState":
+        """Compile ``scene_data`` on ``device`` (the CUDA card unless the
+        CPU is named) and build its intersector, lights and camera."""
+        dev = resolve_device(device)
+        asked = (accel, bool(nee))
+        scene = compile_scene(scene_data, dev)
+        if accel is None:
+            accel = "scan" if scene.num_spheres > SCAN_AUTO_THRESHOLD else "sweep"
+        if accel not in ("sweep", "scan"):
+            raise ValueError(f"unknown accel {accel!r}")
+        if scene.num_spheres > MAX_SPHERES:
+            accel = "scan"
+        isect = Intersector(
+            layout=scan_layout(scene) if accel == "scan" else None,
+            mode=accel,
+            tri_layout=tri_layout(scene) if scene.num_triangles else None,
+        )
+        out = scene_data.output_settings
+        return cls(
+            scene_data=scene_data,
+            device=dev,
+            asked=asked,
+            scene=scene,
+            accel=accel,
+            isect=isect,
+            # Next-event estimation over the scene's sphere and triangle
+            # lights (None when it has none).
+            lights=extract_lights(scene_data, dev) if nee else None,
+            cam=camera_tensors(scene_data.camera_settings, scene_data.camera_data, out.pixel_size, dev),
+            width=out.image_width,
+            height=out.image_height,
+        )
+
+    def matches(self, scene_data: SceneData, device=None, accel: Optional[str] = None,
+                nee: bool = False) -> bool:
+        """True where :meth:`build` with these arguments would build this
+        state: the device, ``accel`` and ``nee`` are the ones asked for and
+        the scene compares equal (field by field, so a scene decoded from
+        the wire matches the one it was sent from; floats compare as
+        values, so a zero matches a zero of the other sign)."""
+        return (
+            self.asked == (accel, bool(nee))
+            and self.device == resolve_device(device)
+            and (self.scene_data is scene_data or self.scene_data == scene_data)
+        )
+
+
 class Renderer:
     """Single-device renderer: compiles a scene once and renders row bands
     at full sample depth (the contract of ``flux_tpu.render.Renderer``).
@@ -192,7 +264,8 @@ class Renderer:
     ``SCAN_AUTO_THRESHOLD`` spheres. A sweep asked for above the sweep's
     ``MAX_SPHERES`` (64) spheres takes the scan, which gives the same bits;
     ``.accel`` says which was taken. Triangles fold in after either. The
-    ``Intersector`` and both block tables are built once, here.
+    ``Intersector`` and both block tables are built once, with the scene
+    state below.
 
     A band goes to the sweep megakernel (K1-K4) for a sweep without
     triangles over at most ``MAX_PLANES`` (16) planes, and to the scene
@@ -204,6 +277,14 @@ class Renderer:
     about ``target_lanes`` lanes. ``nee`` and ``physical`` select the
     estimator as in ``flux_tpu``; ``.nee``, ``.physical`` and ``.lights``
     say what was built (``nee`` is False for a scene with no light).
+
+    What the renderer derives from the scene alone is its :class:`SceneState`
+    (``.state``): built here, or given as ``state``, built for the same
+    ``scene_data``, ``device``, ``accel`` and ``nee`` (a ValueError
+    otherwise), in which case renderers of several jobs share the compiled
+    scene, the intersector and the tables packed from them. The sample
+    root, depth, seed, ``physical`` and ``target_lanes`` are the renderer's
+    own.
     """
 
     def __init__(
@@ -217,35 +298,25 @@ class Renderer:
         accel: Optional[str] = None,
         nee: bool = False,
         physical: bool = False,
+        *,
+        state: Optional[SceneState] = None,
     ):
-        self.device = resolve_device(device)
-        self.scene = compile_scene(scene_data, self.device)
-        if accel is None:
-            accel = "scan" if self.scene.num_spheres > SCAN_AUTO_THRESHOLD else "sweep"
-        if accel not in ("sweep", "scan"):
-            raise ValueError(f"unknown accel {accel!r}")
-        if self.scene.num_spheres > MAX_SPHERES:
-            accel = "scan"
-        self.accel = accel
-        self.isect = Intersector(
-            layout=scan_layout(self.scene) if accel == "scan" else None,
-            mode=accel,
-            tri_layout=tri_layout(self.scene) if self.scene.num_triangles else None,
-        )
-        # Next-event estimation over the scene's sphere and triangle lights
-        # (None, and nee False, when it has none), and physical transport.
-        self.lights = extract_lights(scene_data, self.device) if nee else None
+        if state is None:
+            state = SceneState.build(scene_data, device, accel, nee)
+        elif not state.matches(scene_data, device, accel, nee):
+            raise ValueError("the scene state was built for another scene, device, accel or nee")
+        self.state = state
+        self.device = state.device
+        self.scene = state.scene
+        self.accel = state.accel
+        self.isect = state.isect
+        self.lights = state.lights
         self.nee = self.lights is not None
         self.physical = bool(physical)
         self.scene_data = scene_data
-        self.cam = camera_tensors(
-            scene_data.camera_settings,
-            scene_data.camera_data,
-            scene_data.output_settings.pixel_size,
-            self.device,
-        )
-        self.width = scene_data.output_settings.image_width
-        self.height = scene_data.output_settings.image_height
+        self.cam = state.cam
+        self.width = state.width
+        self.height = state.height
         self.root = int(sample_root)
         self.max_depth = int(max_depth)
         self.seed = int(seed) & MASK

@@ -4,7 +4,12 @@
 ``LocalWorker`` renders on this process's devices, CUDA cards or the CPU
 (the rayon-pool replacement, workers.rs:25-88; several make a device
 mesh, ``parallel/``): per job it builds a renderer through its factory
-and pulls work units from the shared queue until it is drained. ``NetworkWorker`` proxies the same pull loop to a
+and pulls work units from the shared queue until it is drained. On one
+device its default factory keeps the :class:`~flux_tpu_torch.render.SceneState`
+of the last scene it rendered, for the worker's lifetime: a job whose scene
+compares equal, with the same ``nee``, renders on it, so the scene is
+compiled and its device tables packed and copied once, not once a job;
+any other job builds a new state, which replaces it. ``NetworkWorker`` proxies the same pull loop to a
 remote render node over TCP (workers.rs:105-243), keeping the reference's
 pipeline depth of 2 — two units are in flight before the first result is
 awaited (workers.rs:161-201) — so that the link and the remote card
@@ -31,9 +36,9 @@ from .manager import (
 )
 from . import wire
 from .metrics import record, span
-from .render import resolve_device
+from .render import SceneState, resolve_device
 
-__all__ = ["LocalWorker", "NetworkWorker", "default_renderer_factory"]
+__all__ = ["KeptScene", "LocalWorker", "NetworkWorker", "default_renderer_factory"]
 
 
 class _NodeJobError(Exception):
@@ -42,14 +47,34 @@ class _NodeJobError(Exception):
     the lost units go to the manager's retry round."""
 
 
-def default_renderer_factory(job: Job, device=None, accel=None, devices=None):
+class KeptScene:
+    """The scene state of the last job a worker rendered on one device: one
+    entry, kept until a job of another scene, device, ``accel`` or ``nee``
+    replaces it. ``reused`` says whether the last :meth:`get` found it."""
+
+    def __init__(self):
+        self.state = None
+        self.reused = False
+
+    def get(self, scene_data, device=None, accel=None, nee=False):
+        """The kept :class:`~flux_tpu_torch.render.SceneState` where it
+        matches, else a new one, kept in its place once it is built (a build
+        that raises keeps the old one)."""
+        self.reused = self.state is not None and self.state.matches(scene_data, device, accel, nee)
+        if not self.reused:
+            self.state = SceneState.build(scene_data, device, accel, nee)
+        return self.state
+
+
+def default_renderer_factory(job: Job, device=None, accel=None, devices=None, kept: KeptScene = None):
     """The renderer for ``job`` with its sample root, depth, seed and
     estimator: the port's single-device
     :class:`~flux_tpu_torch.render.Renderer` on ``device`` (the CUDA card
-    unless the caller names the CPU), or, where ``devices`` lists more than
-    one, a :class:`~flux_tpu_torch.parallel.MeshRenderer` over them, its
-    shape picked from the frame (sample shards, rows where the frame is
-    tall; ``flux_tpu/workers.py``)."""
+    unless the caller names the CPU), built on ``kept``'s scene state where
+    one is given, or, where ``devices`` lists more than one, a
+    :class:`~flux_tpu_torch.parallel.MeshRenderer` over them, its shape
+    picked from the frame (sample shards, rows where the frame is tall;
+    ``flux_tpu/workers.py``)."""
     from .render import Renderer
 
     devs = list(devices) if devices is not None else [device]
@@ -76,23 +101,32 @@ def default_renderer_factory(job: Job, device=None, accel=None, devices=None):
         accel=accel,
         nee=job.config.nee,
         physical=job.config.physical,
+        state=None if kept is None else kept.get(job.scene_data, devs[0], accel, job.config.nee),
     )
 
 
 class LocalWorker:
     """Pulls work units and renders them on the local devices
-    (workers.rs:25-88)."""
+    (workers.rs:25-88). Each job gets a renderer of its own; on one device
+    with the default factory, the renderers of consecutive jobs of one scene
+    share its scene state (:class:`KeptScene`)."""
 
     def __init__(self, renderer_factory: Callable[[Job], object] = None, name="local",
                  device=None, devices=None):
         """``devices`` are the devices the factory renders on, which
         ``info`` reports; by default ``[device]`` (the CUDA card unless the
         CPU is named). The default factory is
-        :func:`default_renderer_factory` on them."""
+        :func:`default_renderer_factory` on them, on one device with the
+        worker's :class:`KeptScene`."""
         self.devices = [resolve_device(d) for d in devices] if devices else [resolve_device(device)]
         self.device = self.devices[0]
+        self._kept = None
         if renderer_factory is None:
-            kw = {"device": self.device} if len(self.devices) == 1 else {"devices": self.devices}
+            if len(self.devices) == 1:
+                self._kept = KeptScene()
+                kw = {"device": self.device, "kept": self._kept}
+            else:
+                kw = {"devices": self.devices}
 
             def renderer_factory(job):
                 return default_renderer_factory(job, **kw)
@@ -136,8 +170,9 @@ class LocalWorker:
             d_println(f"LocalWorker: got job {job.id}")
             self._busy.set()
             try:
-                with span("worker.renderer_build", job.id):
+                with span("worker.renderer_build", job.id) as sp:
                     renderer = self._factory(job)
+                    sp.set("reused", self._kept is not None and self._kept.reused)
                 while True:
                     with span("sched.pull", job.id):
                         unit = unit_queue.get()

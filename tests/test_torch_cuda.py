@@ -601,3 +601,68 @@ def test_profile_dir_trace_holds_the_job_path_spans_on_the_card(card, tmp_path):
         launch = runtime[k["args"]["correlation"]]
         assert any(s <= launch["ts"] and launch["ts"] + launch["dur"] <= t for s, t in spans), (launch, spans)
     assert {runtime[k["args"]["correlation"]]["tid"] for k in kernels} == {tid}
+
+
+@pytest.mark.cuda
+def test_a_worker_packs_the_cornell_boxs_tables_once_over_its_jobs(card):
+    """Four jobs of the Cornell box through one LocalWorker on the card: one
+    renderer build, then three on its kept scene state; one pack of each
+    table over all four; one launch a unit, each under the configuration the
+    unit's renderer counts; every frame bitwise that of a fresh Renderer."""
+    import collections
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from flux_tpu_torch import metrics
+    from flux_tpu_torch.job import Job, JobConfiguration, JobID
+    from flux_tpu_torch.manager import RenderManager, RowsReady
+    from flux_tpu_torch.workers import LocalWorker
+
+    class Frame:
+        def __init__(self):
+            self.pixels = torch.full((512, 512, 3), float("nan")).numpy()
+
+        def put(self, ev):
+            if isinstance(ev, RowsReady):
+                u = ev.result.work_unit
+                self.pixels[u.row_start : u.row_end + 1] = ev.result.rows
+
+    sd = load_scene(os.path.join(SCENES, "demo5.yml"))
+    base = JobConfiguration(sample_root=2, max_trace_depth=3, rows_per_work_unit=128, nee=True)
+    cfgs = [dataclasses.replace(base, seed=s) for s in (1, 2, 3)]
+    cfgs.append(dataclasses.replace(base, sample_root=3, max_trace_depth=4, seed=4, physical=True))
+    before = collections.Counter(render_block_scene.launches)
+    worker = LocalWorker(device=card)
+    manager = RenderManager([worker.handle()])
+    frames, ids = [], []
+    metrics.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            for cfg in cfgs:
+                frame = Frame()
+                handle = manager.schedule_job(sd, cfg, frame)
+                assert handle.wait(timeout=120) and handle.ok, handle.error
+                frames.append(frame.pixels)
+                ids.append(handle.job_id)
+    finally:
+        manager.stop()
+        worker.stop()
+    got = metrics.spans()
+    builds = {s.job: s.attrs["reused"] for s in got if s.name == "worker.renderer_build"}
+    assert [builds[j] for j in ids] == [False, True, True, True]
+    packs = [s for s in got if s.name == "kernel.pack_tables"]
+    assert sorted(s.attrs["table"] for s in packs) == ["lights", "triangles"]
+    assert {s.job for s in packs} == {ids[0]}
+    launched = collections.Counter(render_block_scene.launches)
+    launched.subtract(before)
+    want = collections.Counter()
+    for cfg, pixels in zip(cfgs, frames):
+        r = Renderer(sd, cfg.sample_root, cfg.max_trace_depth, seed=cfg.seed, device=card, nee=cfg.nee,
+                     physical=cfg.physical)
+        units = Job(JobID(0, 0), sd, cfg).work_units()
+        want[r._launch_config(False)] += len(units)
+        for u in units:
+            band = r.render_rows(u.row_start, u.num_rows)
+            assert (pixels[u.row_start : u.row_end + 1].view("int32") == band.view("int32")).all(), (cfg, u)
+    assert +launched == want

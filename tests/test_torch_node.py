@@ -220,7 +220,7 @@ def test_node_death_mid_render_survivor_completes(tmp_path):
 
 
 def test_node_render_failure_is_reported_not_hung(tmp_path, monkeypatch):
-    def explode(job, device=None, accel=None):
+    def explode(job, **kw):
         raise RuntimeError("injected node failure")
 
     monkeypatch.setattr(workers_mod, "default_renderer_factory", explode)
@@ -238,7 +238,7 @@ def test_node_render_failure_is_reported_not_hung(tmp_path, monkeypatch):
 
 
 def test_cancellation_through_a_node_keeps_the_link(tmp_path, monkeypatch):
-    def slow(job, device=None, accel=None):
+    def slow(job, **kw):
         time.sleep(0.4)
         return cpu_factory(job)
 
