@@ -88,19 +88,25 @@ class Driver:
         from flux_tpu_torch.job import JobConfiguration
         from flux_tpu_torch.manager import RenderManager
         from flux_tpu_torch.scene import load_scene
-        from flux_tpu_torch.workers import LocalWorker
 
         self._job_config = JobConfiguration
         self.scene = load_scene(self.scene_path)
         out = self.scene.output_settings
         self.width, self.height = out.image_width, out.image_height
         self.starts = list(range(0, self.height, self.rows))
-        self.worker = LocalWorker(device=self.device)  # default_renderer_factory: a Renderer per job
-        self.manager = RenderManager([self.worker.handle()])
+        self.workers = self._workers()
+        self.manager = RenderManager([w.handle() for w in self.workers])
         warm = self._frame(-1, frame_seed(self.seed, "warm"))
         if not warm.ok:
             raise RuntimeError("the warm-up frame failed")
         self._spare = warm.pixels
+
+    def _workers(self) -> list:
+        """The workers the manager sends the units to: one ``LocalWorker``,
+        whose default factory keeps the scene state across jobs."""
+        from flux_tpu_torch.workers import LocalWorker
+
+        return [LocalWorker(device=self.device)]
 
     def _frame(self, index: int, seed: int) -> Frame:
         cfg = self._job_config(
@@ -161,8 +167,9 @@ class Driver:
 
     def close(self) -> None:
         self.manager.stop()
-        self.worker.stop()
-        self.manager = self.worker = None
+        for w in self.workers:
+            w.stop()
+        self.manager, self.workers = None, []
 
     def verify(self, control: bool = False) -> dict:
         """The kept frames against the plain reference, at the pixels drawn

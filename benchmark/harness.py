@@ -12,7 +12,10 @@ metric is a file of its own, found by the name ``BENCHMARK.json`` gives:
 A driver builds the program's own entry (the job path, or the
 progressive renderer), warms the cell's shape, drives the timed window,
 and afterwards judges what the window produced against the plain
-reference in ``reference/``.
+reference in ``reference/``. A driver whose program does its device work
+in child processes, one card each, returns them from ``processes()``
+(``procs.py``); the run gathers their launches, peak memory, trace,
+spans and modules beside its own.
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ import importlib.util
 import json
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 from types import SimpleNamespace
 
 __all__ = ["BENCH_DIR", "REPO_DIR", "load_spec", "load_json", "load_module", "frame_seed", "cell_metrics",
-           "run_cell", "forbidden_modules", "main"]
+           "launch_counters", "profiler_activities", "run_cell", "forbidden_modules", "main"]
 
 BENCH_DIR = Path(__file__).resolve().parent
 REPO_DIR = BENCH_DIR.parent
@@ -106,7 +110,9 @@ class Spans:
         return [e - s for n, s, e in self.spans if n == name]
 
 
-def _launches() -> dict:
+def launch_counters() -> tuple:
+    """The program's launch counters, each a Counter by kernel
+    configuration."""
     from flux_tpu_torch.ops.scene_kernel import render_block_scene
     from flux_tpu_torch.ops.sweep_kernel import render_block_sweep
 
@@ -121,11 +127,53 @@ def kernel_config(config: dict, mix: dict, stats: bool) -> str:
             + "+physical" * bool(mix.get("physical")) + "+stats" * stats)
 
 
+def _processes(drv) -> list:
+    return list(drv.processes()) if hasattr(drv, "processes") else []
+
+
+def profiler_activities(dev, children: bool, own_cuda: bool) -> list:
+    """What the master's profiler traces: the host, and the card where
+    the master does device work. A master whose device work runs in its
+    children, each tracing its own card, traces the host alone, since
+    tracing a card would take a context on it."""
+    from torch.profiler import ProfilerActivity
+
+    card = dev.type == "cuda" and (own_cuda or not children)
+    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+
+
+class _Children:
+    """The requests of one run to its driver's child processes: a child
+    that fails one is reported on standard error, counted once, and asked
+    nothing more."""
+
+    def __init__(self, procs):
+        self.procs, self.failed = procs, []
+
+    def ask(self, name: str, *args) -> list:
+        from .procs import ChildFailed
+
+        out = []
+        for p in self.procs:
+            if p in self.failed:
+                continue
+            try:
+                out.append(getattr(p, name)(*args))
+            except ChildFailed as e:
+                print(f"child failed: {e}", file=sys.stderr)
+                self.failed.append(p)
+        return out
+
+
 def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool, *, device="cuda",
              base: Path = BENCH_DIR, t0: float = None) -> dict:
     """One run of a cell: set-up and warm-up, the window, the check
     against the reference, and the metrics. Returns the result line's
-    object, with the compared numbers under ``checks`` (last)."""
+    object, with the compared numbers under ``checks`` (last); before it,
+    ``forbidden`` lists the forbidden modules the driver's child processes
+    held, and ``unread`` the children whose modules were never read, as
+    one that failed a request before its report (for ``main``, which takes
+    both keys out)."""
     import torch
 
     t0 = time.perf_counter() if t0 is None else t0
@@ -138,36 +186,54 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
     dev = torch.device(device)
     drv = driver_mod.Driver(config=config, mix=mix, scene_path=str(Path(base) / "configs" / config["scene"]),
                             device=dev, seed=seed, spans=spans)
-    drv.setup()
-    counters = _launches()
-    for c in counters:
-        c.clear()
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    summary = None
-    if trace:
-        from torch.profiler import ProfilerActivity, profile
+    try:
+        drv.setup()
+        children = _Children(_processes(drv))
+        counters = launch_counters()
+        for c in counters:
+            c.clear()
+        # A master whose device work runs in its children never touches a
+        # card, and takes no context on one.
+        own_cuda = dev.type == "cuda" and torch.cuda.is_initialized()
+        if own_cuda:
+            torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        children.ask("window_start", trace)
+        summary = None
+        if trace:
+            from torch.profiler import profile
 
-        from . import trace as tr
+            from . import trace as tr
 
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        with profile(activities=acts) as prof:
-            w0 = time.perf_counter()
+            with profile(activities=profiler_activities(dev, bool(children.procs), own_cuda)) as prof:
+                w0 = time.perf_counter()
+                drv.window(seconds)
+                window_traced = time.perf_counter() - w0
+            summary = tr.reduce(*tr.events(prof), window_traced, cards=cell["chips"])
+            del prof
+        else:
             drv.window(seconds)
-            window_traced = time.perf_counter() - w0
-        summary = tr.reduce(*tr.events(prof), window_traced)
-        del prof
-    else:
-        drv.window(seconds)
-    launched = {k: v for c in counters for k, v in c.items()}
-    device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type, "kind": None, "count": cell["chips"],
-                   "memory_peak_bytes": 0}
-    if dev.type == "cuda":
-        device_info["kind"] = torch.cuda.get_device_name(dev)
-        device_info["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
-    drv.close()
-    if dev.type == "cuda":
+        children.ask("window_end")
+        reports = children.ask("report")
+        launched = Counter({k: v for c in counters for k, v in c.items()})
+        for r in reports:
+            launched.update(r["launches"])
+        device_info = {"platform": "gpu" if dev.type == "cuda" else dev.type, "kind": None, "count": cell["chips"],
+                       "memory_peak_bytes": 0}
+        if own_cuda:
+            device_info["kind"] = torch.cuda.get_device_name(dev)
+            device_info["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+        device_info["kind"] = next((r["card"] for r in reports if r["card"]), device_info["kind"])
+        device_info["memory_peak_bytes"] = max([device_info["memory_peak_bytes"]]
+                                               + [r["memory_peak_bytes"] for r in reports])
+        if summary is not None and children.procs:
+            summary = tr.combine([summary] + [r["trace"] for r in reports if r["trace"] is not None],
+                                 cards=cell["chips"], window_s=window_traced)
+        drv.close()
+    finally:
+        for p in _processes(drv):
+            p.close()
+    if own_cuda:
         torch.cuda.empty_cache()
     # Every launch of the window takes the cell's one kernel configuration;
     # on the CPU the plain version runs and nothing is launched.
@@ -176,7 +242,8 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
     stray = sum(n for k, n in launched.items() if k != want) + abs(launched.get(want, 0) - expected)
     checks = {**drv.verify(), "stray_launches": stray}
     run = SimpleNamespace(cell=cell, config=config, mix=mix, setup_s=setup_s, trace=summary, base=Path(base),
-                          device=device_info, **drv.record())
+                          device=device_info, launches=dict(launched),
+                          process_spans=[s for r in reports for s in r["spans"]], **drv.record())
     metrics = {}
     for m in cell_metrics(spec, cell_name, trace):
         value = load_module("metrics", m["name"], base).read(run)
@@ -189,11 +256,14 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
     if missing:
         raise KeyError(f"limits/{cell_name}.json names numbers the check does not give: {sorted(missing)}")
     compared = {k: {"value": checks[k], "limit": limits[k]} for k in limits}
-    correct = drv.failed == 0 and all(c["value"] <= c["limit"] for c in compared.values())
-    out = {"correct": bool(correct), "attempted": drv.attempted, "failed": drv.failed, "metrics": metrics,
+    failed = drv.failed + len(children.failed)
+    correct = failed == 0 and all(c["value"] <= c["limit"] for c in compared.values())
+    out = {"correct": bool(correct), "attempted": drv.attempted, "failed": failed, "metrics": metrics,
            "device": device_info}
     if summary is not None:
         out["breakdown"] = {"device_ops": summary.device_ops, "idle_gaps": summary.idle_gaps}
+    out["forbidden"] = sorted({m for r in reports for m in r["forbidden"]})
+    out["unread"] = [str(p) for p in children.failed]
     out["checks"] = compared
     return out
 
@@ -219,9 +289,14 @@ def main(argv=None, t0: float = None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available", file=sys.stderr)
         return 2
     out = run_cell(spec, args.workload, args.seed, args.seconds, bool(args.trace), t0=t0)
-    found = forbidden_modules()
+    found = sorted(set(forbidden_modules()) | set(out.pop("forbidden")))
+    unread = out.pop("unread")
     if found:
         print(f"forbidden modules loaded: {', '.join(found)}", file=sys.stderr)
+        return 3
+    if unread:
+        # Whether such a child held a forbidden module is not known.
+        print(f"modules not read from: {', '.join(unread)}", file=sys.stderr)
         return 3
     sys.stdout.flush()
     for k, c in out["checks"].items():

@@ -4,8 +4,9 @@ import json
 
 
 def idle_pct(run):
-    """The share of the traced window in which the device ran nothing, in
-    %; None off the card or without a trace."""
+    """The share of the traced window in which a card ran nothing, in %,
+    the mean over the cell's cards (``trace.TraceSummary.busy_s``); None
+    off the card or without a trace."""
     if run.device["platform"] != "gpu" or run.trace is None:
         return None
     return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
@@ -13,10 +14,10 @@ def idle_pct(run):
 
 def job_overhead_ms(run):
     """Per frame, the span from ``schedule_job`` to the last unit at the
-    sink less the device's busy time, in ms: the mean over the window's
-    frames. Every device operation of the window belongs to one of its
-    frames, which run one at a time, so the frames' busy time is the
-    trace's."""
+    sink less a card's busy time (the mean over the cell's cards), in ms:
+    the mean over the window's frames. Every device operation of the
+    window belongs to one of its frames, which run one at a time, so the
+    frames' busy time is the trace's."""
     frames = getattr(run, "frames", None)
     if run.device["platform"] != "gpu" or run.trace is None or not frames:
         return None

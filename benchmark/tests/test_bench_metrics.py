@@ -32,6 +32,38 @@ def test_reduce_a_fixed_trace():
     # The one gap, 40-100 ms, is named by what covers its middle (70 ms).
     assert s.idle_gaps == [["bench.frame", pytest.approx(0.060)]]
     assert trace.union_ns([(5, 9, "a"), (0, 3, "b"), (2, 4, "c")]) == [[0, 4], [5, 9]]
+    # One card: the union's seconds exactly, whether or not the events name
+    # their card.
+    dev, host = _fixed_trace()
+    assert s.busy_s == 81 * MS * 1e-9 and s.busy_by_card == {0: 81 * MS * 1e-9}
+    assert trace.reduce([(*e, 0) for e in dev], host, window_s=0.2) == s
+
+
+def test_two_cards_are_two_cards():
+    """Card 0 runs the fixed trace's 81 ms; card 1 runs 30 ms, overlapping
+    card 0's, with one 50-ms gap. Busy time is the mean over the cards, not
+    their union; kernel seconds and gaps are sums."""
+    dev, host = _fixed_trace()
+    two = dev + [(10 * MS, 20 * MS, "void sweep_megakernel<0,0,0,0>(...)", 1),
+                 (70 * MS, 90 * MS, "void sweep_megakernel<0,0,0,0>(...)", 1)]
+    s = trace.reduce(two, host, window_s=0.2, cards=2)
+    assert s.busy_by_card == {0: pytest.approx(0.081), 1: pytest.approx(0.030)}
+    assert s.busy_s == pytest.approx((0.081 + 0.030) / 2)
+    assert s.kernel_seconds("sweep_megakernel") == pytest.approx(0.110)
+    # Card 1's gap, 20-70 ms, is named by what covers its middle (45 ms).
+    assert s.idle_gaps == [["bench.frame", pytest.approx(0.060)], ["aten::copy_", pytest.approx(0.050)]]
+    # A four-card cell whose other two cards ran nothing: idle, in the mean.
+    assert trace.reduce(two, host, window_s=0.2, cards=4).busy_s == pytest.approx(0.111 / 4)
+    # The same two cards traced by two processes, one card each, as the
+    # harness merges them; the master's own trace ran nothing.
+    card0 = trace.reduce(dev, host, window_s=0.21, cards=0)
+    card1 = trace.reduce([(a, b, n, 1) for a, b, n, _ in two[3:]], host, window_s=0.22, cards=0)
+    master = trace.reduce([], host, window_s=0.2, cards=2)
+    both = trace.combine([master, card0, card1], cards=2, window_s=0.2)
+    assert (both.busy_s, both.window_s, both.kernel_s, both.device_ops) == (s.busy_s, 0.2, s.kernel_s, s.device_ops)
+    assert both.busy_by_card == s.busy_by_card and both.idle_gaps == s.idle_gaps
+    assert trace.combine([card1], cards=4).busy_s == pytest.approx(0.030 / 4)
+    assert trace.combine([card0, card1], cards=1).window_s == 0.22
 
 
 def _run(**kw):

@@ -3,6 +3,9 @@ needs found by name."""
 
 import json
 import re
+import sys
+
+import pytest
 
 from benchmark.harness import BENCH_DIR, REPO_DIR, cell_metrics
 
@@ -22,16 +25,24 @@ def test_top_level_keys_and_limits(spec):
     assert (2 + 14 * n) * (spec["run_seconds"] + 60) + n * 2 * 90 + 1200 <= 43200
 
 
+def four_chip_quota(n_cells: int) -> int:
+    """How many cells may ask for four chips: a quarter, rounded down, and
+    one always."""
+    return max(1, n_cells // 4)
+
+
 def test_entries_have_exactly_their_keys(spec):
     for c in spec["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert NAME.match(c["name"]) and LINE.match(c["source"]) and LINE.match(c["why"])
         assert c["file"].startswith("benchmark/") and (REPO_DIR / c["file"]).is_file()
-        assert json.loads((REPO_DIR / c["file"]).read_text())["reduced"] == c["reduced"] == []
+        assert len(c["reduced"]) <= 16 and all(NAME.match(k) for k in c["reduced"])
+        assert json.loads((REPO_DIR / c["file"]).read_text())["reduced"] == c["reduced"]
     for w in spec["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and LINE.match(w["why"])
-        assert w["chips"] == 1 and w["config"] in {c["name"] for c in spec["configs"]}
+        assert w["chips"] in (1, 4) and w["config"] in {c["name"] for c in spec["configs"]}
+    assert sum(w["chips"] == 4 for w in spec["workloads"]) <= four_chip_quota(len(spec["workloads"]))
     for m in spec["end_to_end"]:
         assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
         assert m["source"] in SOURCES_E2E and 0.01 <= m["bound"] <= 0.25
@@ -81,3 +92,35 @@ def test_the_cells_left_for_later_fit_the_benchmark(spec):
     pending = json.loads((BENCH_DIR / "pending.json").read_text())
     test_entries_have_exactly_their_keys({**spec, **{k: spec[k] + pending[k]
                                                      for k in ("workloads", "end_to_end", "per_layer")}})
+
+
+def _four_chip_cells(spec, n: int) -> dict:
+    """``spec`` with ``n`` made-up cells of demo2 on four chips."""
+    extra = [{"name": f"demo2.nodes_{i}", "config": "demo2", "traffic": f"nodes_{i}", "chips": 4,
+              "why": "frames over four render nodes, one a card"} for i in range(n)]
+    return {**spec, "workloads": spec["workloads"] + extra}
+
+
+def test_a_four_chip_cell_fits_the_benchmark(spec):
+    test_entries_have_exactly_their_keys(_four_chip_cells(spec, 1))
+
+
+def test_four_chip_cells_past_the_quota_are_refused(spec):
+    assert [four_chip_quota(n) for n in (1, 4, 7, 8, 24)] == [1, 1, 1, 2, 6]
+    with pytest.raises(AssertionError):
+        test_entries_have_exactly_their_keys(_four_chip_cells(spec, 2))  # 2 of 4 cells
+
+
+def test_a_cut_configuration_states_its_cuts_in_both_places(spec, tmp_path, monkeypatch):
+    """A configuration's file and its entry name the same ``reduced``; a
+    cut named in one place only is refused."""
+    cfg = json.loads((REPO_DIR / "benchmark/configs/demo2.json").read_text())
+    (tmp_path / "benchmark").mkdir()
+    cut = {**cfg, "reduced": ["sample_root"]}
+    (tmp_path / "benchmark" / "cut.json").write_text(json.dumps(cut))
+    monkeypatch.setattr(sys.modules[__name__], "REPO_DIR", tmp_path)
+    entry = {"name": "demo2_cut", "source": "x", "file": "benchmark/cut.json", "reduced": ["sample_root"],
+             "why": "x"}
+    test_entries_have_exactly_their_keys({**spec, "configs": [entry], "workloads": []})
+    with pytest.raises(AssertionError):
+        test_entries_have_exactly_their_keys({**spec, "configs": [{**entry, "reduced": []}], "workloads": []})
