@@ -4,9 +4,10 @@
 The reference's observability is ``d_println`` timestamps plus wall-clock
 prints from the event sinks. Here:
 
-* :func:`span` (a context manager) and :func:`stamp`/:func:`record` (a span
-  whose start another thread took) time the job path's host work on the
-  threads that do it: the manager, the workers, the kernel launches. They
+* :func:`span` (a context manager), :func:`stamp`/:func:`record` (a span
+  whose start another thread took) and :func:`held` (a span that overlaps
+  the next one of its name on its thread) time the job path's host work on
+  the threads that do it: the manager, the workers, the kernel launches. They
   record only while a ``torch.profiler`` window is open anywhere in the
   process, which is what ``torch.autograd.profiler._is_profiler_enabled``
   says on every thread; the profiler itself records host work only on the
@@ -33,7 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch.autograd.profiler as _profiler
 
-__all__ = ["Span", "span", "stamp", "record", "spans", "clear", "clock_offset_ns", "profile_trace"]
+__all__ = ["Span", "span", "held", "stamp", "record", "spans", "clear", "clock_offset_ns", "profile_trace"]
 
 # The process-wide flag that torch.profiler.profile sets when its window
 # starts and clears when it stops (the thread-local
@@ -72,24 +73,54 @@ class _Open:
             self.attrs = {}
         self.attrs[key] = value
 
-    def __enter__(self):
+    def _start(self) -> None:
         stack = _stack()
         outer = stack[-1] if stack else None
         self.parent = None if outer is None else outer.id
         if self.job is None and outer is not None:
             self.job = outer.job
         self.id = _begin()
-        stack.append(self)
         self.start_ns = time.perf_counter_ns()
+
+    def __enter__(self):
+        self._start()
+        _stack().append(self)
         return self
 
     def __exit__(self, *exc) -> bool:
         end = time.perf_counter_ns()
         _stack().pop()
+        self._keep(end)
+        return False
+
+    def _keep(self, end: int) -> None:
         t = threading.current_thread()
         _SPANS.append(Span(self.id, self.name, self.start_ns, end, t.native_id, t.ident, t.name, self.job,
                            self.parent, self.attrs or {}))
+
+
+class _Held(_Open):
+    """A span opened when it is made and recorded by :meth:`close`; each
+    ``with`` block on it makes it the enclosing span of the spans opened
+    inside, on its thread."""
+
+    __slots__ = ()
+
+    def __init__(self, name: str, job):
+        super().__init__(name, job)
+        self._start()
+
+    def __enter__(self):
+        _stack().append(self)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _stack().pop()
         return False
+
+    def close(self) -> None:
+        """Record the span, from when it was made to now."""
+        self._keep(time.perf_counter_ns())
 
 
 class _Off:
@@ -98,6 +129,9 @@ class _Off:
     __slots__ = ()
 
     def set(self, key: str, value) -> None:
+        pass
+
+    def close(self) -> None:
         pass
 
     def __bool__(self) -> bool:
@@ -154,6 +188,19 @@ def span(name: str, job=None):
     if not getattr(_profiler, PROFILER_FLAG, False):
         return _OFF
     return _Open(name, job)
+
+
+def held(name: str, job=None):
+    """The span ``name`` of ``job`` (by default the job of the enclosing
+    span on this thread), from now to its ``.close()``, for work that
+    overlaps the next span of its name on the same thread: a unit still in
+    flight while the next is queued. Each ``with`` block on it, of which
+    there may be several, makes it the parent of the spans opened inside.
+    It takes attributes with ``.set(key, value)``; outside a profiler window
+    it is the shared context that records nothing."""
+    if not getattr(_profiler, PROFILER_FLAG, False):
+        return _OFF
+    return _Held(name, job)
 
 
 def stamp() -> Optional[int]:

@@ -403,9 +403,39 @@ class Renderer:
 
     def render_rows(self, row0: int, n_rows: int) -> np.ndarray:
         """Final (averaged, tone-mapped) pixels for rows [row0, row0+n_rows)."""
+        return self.wait_rows(self.queue_rows(row0, n_rows))
+
+    def queue_rows(self, row0: int, n_rows: int):
+        """The first half of :meth:`render_rows`: on the card, queue on the
+        device's current stream the band's launch, :func:`finalize`, a copy
+        of the pixels into page-locked host memory and an event behind them,
+        and return without waiting for any of it; on the CPU, render the
+        band. Returns the handle that :meth:`wait_rows` takes.
+
+        The host buffer comes from PyTorch's caching host allocator: it goes
+        back to the cache once the array :meth:`wait_rows` returned is gone,
+        and serves a later band, so steady work allocates no page-locked
+        memory."""
         acc = self.render_rows_sum(row0, n_rows)
         with span("unit.readback"):
-            return finalize(acc, root=self.root).cpu().numpy()
+            rows = finalize(acc, root=self.root)
+            if self.device.type != "cuda":
+                return rows, None
+            host = torch.empty_strided(rows.size(), rows.stride(), dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(self.device))
+        return host, copied
+
+    @staticmethod
+    def wait_rows(pending) -> np.ndarray:
+        """The pixels of a :meth:`queue_rows` handle, once its copy has ended
+        (the wait releases the GIL). The array is the band's own: no later
+        band writes it."""
+        host, copied = pending
+        if copied is not None:
+            copied.synchronize()
+        return host.numpy()
 
     def render_image(self, rows_per_band: Optional[int] = None) -> np.ndarray:
         """Render the full frame, band by band."""

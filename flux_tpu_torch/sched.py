@@ -239,6 +239,11 @@ class SchedulerRound:
         i = self._core.pull()
         return None if i < 0 else self._units[i]
 
+    def get_nowait(self) -> Optional[WorkUnit]:
+        """:meth:`get`, which never waits: a pull takes the next unit or
+        finds the round drained or cancelled."""
+        return self.get()
+
     # -- wait-group face (what the manager blocks on) -----------------------
     def done(self) -> None:
         self._core.worker_done()

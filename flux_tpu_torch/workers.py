@@ -35,7 +35,7 @@ from .manager import (
     WorkUnitResult,
 )
 from . import wire
-from .metrics import record, span
+from .metrics import held, record, span
 from .render import SceneState, resolve_device
 
 __all__ = ["KeptScene", "LocalWorker", "NetworkWorker", "default_renderer_factory"]
@@ -109,7 +109,10 @@ class LocalWorker:
     """Pulls work units and renders them on the local devices
     (workers.rs:25-88). Each job gets a renderer of its own; on one device
     with the default factory, the renderers of consecutive jobs of one scene
-    share its scene state (:class:`KeptScene`)."""
+    share its scene state (:class:`KeptScene`). On a CUDA card a renderer
+    that splits its render (``queue_rows``, ``wait_rows``) has the next
+    unit's kernel queued while the host reads back and delivers a unit; any
+    other renders one unit at a time."""
 
     def __init__(self, renderer_factory: Callable[[Job], object] = None, name="local",
                  device=None, devices=None):
@@ -173,19 +176,7 @@ class LocalWorker:
                 with span("worker.renderer_build", job.id) as sp:
                     renderer = self._factory(job)
                     sp.set("reused", self._kept is not None and self._kept.reused)
-                while True:
-                    with span("sched.pull", job.id):
-                        unit = unit_queue.get()
-                    if unit is None:
-                        break
-                    with span("worker.unit", job.id) as sp:
-                        sp.set("row_start", unit.row_start)
-                        sp.set("rows", unit.num_rows)
-                        d_println(f"LocalWorker: rendering {unit}")
-                        rows = renderer.render_rows(unit.row_start, unit.num_rows)
-                        with span("unit.deliver"):
-                            sink.put(RowsReady(WorkUnitResult(work_unit=unit, rows=rows)))
-                    self.units_done += 1
+                self._render(job, renderer, unit_queue, sink)
             except Exception as e:
                 # Keep serving future jobs (the manager retries lost units);
                 # the reference would panic the whole process here
@@ -210,9 +201,93 @@ class LocalWorker:
                 self._busy.clear()
                 wg.done()
 
+    def _render(self, job: Job, renderer, unit_queue, sink) -> None:
+        """The units of a job, delivered in the order they were pulled. A
+        renderer that queues ahead (:func:`_queues_ahead`) holds one unit in
+        flight: the next is pulled and its kernel queued before the host
+        waits on the held unit's copy and delivers it, so that the card runs
+        one unit while the host reads back, delivers and pulls around it
+        (``NetworkWorker``'s depth of 2). The next unit is taken ahead only
+        where the queue hands it over without waiting, since a node's queue
+        may wait on the very rows held; else the held unit is delivered
+        first. Where queueing a unit raises, the held one is delivered
+        first. Any other renderer renders each unit and delivers it before
+        the next pull. A unit's ``worker.unit`` span runs from its pull to
+        its delivery, so that those of consecutive units may overlap;
+        ``ahead`` says whether the unit was queued while the one before it
+        was still in flight."""
+        ahead = _queues_ahead(renderer)
+
+        def deliver(unit, sp, pending) -> None:
+            with sp:
+                if ahead:
+                    with span("unit.wait"):
+                        pending = renderer.wait_rows(pending)
+                with span("unit.deliver"):
+                    sink.put(RowsReady(WorkUnitResult(work_unit=unit, rows=pending)))
+            sp.close()
+            self.units_done += 1
+
+        in_flight = None  # (unit, its span, its handle): queued, not yet delivered
+        try:
+            while True:
+                unit = _NOT_READY
+                if in_flight is not None:
+                    with span("sched.pull", job.id):
+                        unit = _pull_ready(unit_queue)
+                    if unit is _NOT_READY:
+                        before, in_flight = in_flight, None
+                        deliver(*before)
+                if unit is _NOT_READY:
+                    with span("sched.pull", job.id):
+                        unit = unit_queue.get()
+                if unit is None:
+                    return
+                sp = held("worker.unit", job.id)
+                sp.set("row_start", unit.row_start)
+                sp.set("rows", unit.num_rows)
+                sp.set("ahead", in_flight is not None)
+                d_println(f"LocalWorker: rendering {unit}")
+                with sp:
+                    if ahead:
+                        pending = renderer.queue_rows(unit.row_start, unit.num_rows)
+                    else:
+                        pending = renderer.render_rows(unit.row_start, unit.num_rows)
+                before, in_flight = in_flight, (unit, sp, pending)
+                if not ahead:
+                    before, in_flight = in_flight, None
+                if before is not None:
+                    deliver(*before)
+        finally:
+            if in_flight is not None:
+                deliver(*in_flight)
+
     def stop(self) -> None:
         self._handle.send_stop()
         self._thread.join(timeout=30)
+
+
+_NOT_READY = object()  # what _pull_ready gives where no unit is there yet
+
+
+def _pull_ready(unit_queue):
+    """The next unit of ``unit_queue`` (None where it is drained), or
+    ``_NOT_READY`` where none is there yet: nothing here waits."""
+    try:
+        return unit_queue.get_nowait()
+    except queue.Empty:
+        return _NOT_READY
+
+
+def _queues_ahead(renderer) -> bool:
+    """True where a worker queues a unit before it delivers the one before:
+    the renderer splits its render into ``queue_rows`` and ``wait_rows`` and
+    renders on a CUDA card, whose launches return before the kernel ends. A
+    mesh, a renderer with ``render_rows`` alone and any renderer on the CPU,
+    whose render has ended when it returns, take one unit at a time."""
+    device = getattr(renderer, "device", None)
+    return (hasattr(renderer, "queue_rows") and hasattr(renderer, "wait_rows")
+            and getattr(device, "type", None) == "cuda")
 
 
 class NetworkWorker:

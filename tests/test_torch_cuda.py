@@ -561,8 +561,9 @@ def test_strided_masked_launch_matches_plain(card, name, nee, physical, stats):
 def test_profile_dir_trace_holds_the_job_path_spans_on_the_card(card, tmp_path):
     """The CLI's ``--profile-dir`` trace of a Cornell-box job on the card:
     every span of the job path on the worker's track, one renderer build,
-    one pack of each table under the job's first launch, each launch under
-    its unit with the configuration it was counted under; every kernel
+    one pack of each table under the job's first launch, each launch, each
+    readback queued, wait and delivery under its unit, the units queued two
+    deep, each launch with the configuration it was counted under; every kernel
     launch the profiler saw the worker make lies inside one of the worker's
     ``kernel.launch`` spans, on the trace's clock."""
     import collections
@@ -579,9 +580,18 @@ def test_profile_dir_trace_holds_the_job_path_spans_on_the_card(card, tmp_path):
     flux = [e for e in events if e.get("cat") == "flux"]
     assert {e["name"] for e in flux} == {
         "manager.queue_wait", "manager.dispatch", "manager.finish", "worker.queue_wait", "worker.renderer_build",
-        "sched.pull", "worker.unit", "kernel.launch", "kernel.pack_tables", "unit.readback", "unit.deliver"}
+        "sched.pull", "worker.unit", "kernel.launch", "kernel.pack_tables", "unit.readback", "unit.wait",
+        "unit.deliver"}
     assert sum(e["name"] == "worker.renderer_build" for e in flux) == 1
     by_id = {e["args"]["span"]: e for e in flux}
+    # The units are queued two deep: each but the first while the one before
+    # it is in flight, and each holds its launch, its readback queued, its
+    # wait and its delivery.
+    units = sorted((e for e in flux if e["name"] == "worker.unit"), key=lambda e: e["ts"])
+    assert [e["args"]["ahead"] for e in units] == [False, True, True, True]
+    for e in flux:
+        if e["name"] in ("unit.readback", "unit.wait", "unit.deliver"):
+            assert by_id[e["args"]["parent"]]["name"] == "worker.unit"
     packs = [e for e in flux if e["name"] == "kernel.pack_tables"]
     assert sorted(e["args"]["table"] for e in packs) == ["lights", "triangles"]
     (first,) = {e["args"]["parent"] for e in packs}
@@ -666,3 +676,80 @@ def test_a_worker_packs_the_cornell_boxs_tables_once_over_its_jobs(card):
             band = r.render_rows(u.row_start, u.num_rows)
             assert (pixels[u.row_start : u.row_end + 1].view("int32") == band.view("int32")).all(), (cfg, u)
     assert +launched == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, root, nee", [("demo5", 32, True), ("demo2", 4, False)],
+                         ids=["cornell 1024 spp", "demo2 16 spp"])
+def test_a_workers_units_two_deep_give_the_sequential_bits(card, tmp_path, name, root, nee):
+    """Three frames through one LocalWorker on the card, 50-row units (11 of
+    the Cornell box, 12 of demo2): every frame bitwise that of
+    ``Renderer.render_rows`` over the same units one at a time and of the
+    blocking readback of the band's sum (``finalize(...).cpu()``); ``ahead`` on
+    every unit but a frame's first; the page-locked host buffers taken from
+    the cache, not allocated a unit. At the Cornell cell's 1024 spp, each
+    unit's launch (the scene upload with it) is queued while the kernel of
+    the unit before it still runs."""
+    import json
+
+    from flux_tpu_torch import metrics
+    from flux_tpu_torch.job import Job, JobConfiguration, JobID
+    from flux_tpu_torch.manager import RenderManager, RowsReady
+    from flux_tpu_torch.workers import LocalWorker
+
+    sd = load_scene(os.path.join(SCENES, f"{name}.yml"))
+    out = sd.output_settings
+
+    class Frame:
+        def __init__(self):
+            self.pixels = torch.full((out.image_height, out.image_width, 3), float("nan")).numpy()
+
+        def put(self, ev):
+            if isinstance(ev, RowsReady):
+                u = ev.result.work_unit
+                self.pixels[u.row_start : u.row_end + 1] = ev.result.rows
+
+    cfgs = [JobConfiguration(sample_root=root, max_trace_depth=5, rows_per_work_unit=50, seed=s, nee=nee)
+            for s in (11, 12, 13)]
+    n_units = len(Job(JobID(0, 0), sd, cfgs[0]).work_units())
+    worker = LocalWorker(device=card)
+    manager = RenderManager([worker.handle()])
+    frames = []
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    try:
+        with metrics.profile_trace(str(tmp_path)) as prof:
+            for cfg in cfgs:
+                frame = Frame()
+                handle = manager.schedule_job(sd, cfg, frame)
+                assert handle.wait(timeout=120) and handle.ok, handle.error
+                frames.append(frame.pixels)
+    finally:
+        manager.stop()
+        worker.stop()
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"] - allocs
+    # A block waits, once freed, for the kernels queued before its release:
+    # a few of each unit size serve every unit of the three frames.
+    assert allocs <= 6 < 3 * n_units, allocs
+    for cfg, pixels in zip(cfgs, frames):
+        r = Renderer(sd, cfg.sample_root, cfg.max_trace_depth, seed=cfg.seed, device=card, nee=nee)
+        for u in Job(JobID(0, 0), sd, cfg).work_units():
+            got = pixels[u.row_start : u.row_end + 1].view("int32")
+            band = r.render_rows(u.row_start, u.num_rows)
+            assert (got == band.view("int32")).all(), (cfg, u)
+            band = finalize(r.render_rows_sum(u.row_start, u.num_rows), root=r.root).cpu().numpy()
+            assert (got == band.view("int32")).all(), (cfg, u)
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    flux = [e for e in events if e.get("cat") == "flux"]
+    units = sorted((e for e in flux if e["name"] == "worker.unit"), key=lambda e: e["ts"])
+    assert [e["args"]["ahead"] for e in units] == ([False] + [True] * (n_units - 1)) * 3
+    if root < 32:
+        return
+    launches = sorted((e for e in flux if e["name"] == "kernel.launch"), key=lambda e: e["ts"])
+    kernels = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+                      and "megakernel" in e.get("name", "")), key=lambda e: e["ts"])
+    assert len(launches) == len(kernels) == 3 * n_units
+    for k in range(1, len(kernels)):
+        if units[k]["args"]["ahead"]:
+            before = kernels[k - 1]
+            assert launches[k]["ts"] + launches[k]["dur"] < before["ts"] + before["dur"], k

@@ -157,12 +157,67 @@ def test_a_job_in_a_window_records_every_span_of_the_job_path(name, config):
             assert s.parent is None  # a thread's outermost span: its parent is the job
     units = sorted((s.attrs["row_start"], s.attrs["rows"]) for s in got if s.name == "worker.unit")
     assert units == [(0, 5), (5, 5), (10, 2)]
+    assert not any(s.attrs.get("ahead", True) for s in got if s.name == "worker.unit")  # one at a time
     assert sum(s.name == "sched.pull" for s in got) == len(units) + 1  # the last pull yields None
     assert Renderer(sd, 2, 2, device="cpu", nee=cfg.nee)._launch_config(False) == config
     one = lambda n: next(s for s in got if s.name == n)  # noqa: E731
     assert one("manager.queue_wait").end_ns <= one("manager.dispatch").end_ns <= one("worker.queue_wait").end_ns
     assert one("worker.queue_wait").end_ns <= one("worker.renderer_build").start_ns
     assert max(s.end_ns for s in got if s.name == "unit.deliver") <= one("manager.finish").start_ns
+
+
+class _Split:
+    """A renderer with the split calls that reports a CUDA card, so that the
+    worker queues each unit before it delivers the one before; its
+    ``queue_rows`` opens a ``kernel.launch`` span, as the card's does."""
+
+    device = torch.device("cuda")
+
+    def __init__(self, job):
+        self.width = job.scene_data.output_settings.image_width
+
+    def queue_rows(self, row0, n_rows):
+        with metrics.span("kernel.launch"):
+            return row0, n_rows
+
+    def wait_rows(self, pending):
+        row0, n_rows = pending
+        return torch.zeros(n_rows, self.width, 3).numpy()
+
+
+def test_units_queued_ahead_record_their_overlap_and_wait_only_in_a_window():
+    """Two deep, a unit's ``worker.unit`` runs from its pull to its delivery,
+    so consecutive ones overlap, and holds its ``kernel.launch``, its
+    ``unit.wait`` and its ``unit.deliver``; ``ahead`` is true on every unit
+    but the first. Nothing is recorded outside a window."""
+
+    def job():
+        worker = LocalWorker(renderer_factory=_Split, device="cpu")
+        manager = RenderManager([worker.handle()])
+        try:
+            handle = manager.schedule_job(_scene(), CFG, _Sink())
+            assert handle.wait(timeout=WAIT) and handle.ok, handle.error
+            return handle
+        finally:
+            manager.stop()
+            worker.stop()
+
+    metrics.clear()
+    job()
+    assert metrics.spans() == []
+    with _window():
+        handle = job()
+    got = [s for s in metrics.spans() if s.job == handle.job_id]
+    assert {s.name for s in got} == WORKER_SPANS - {"unit.readback"} | {"unit.wait", "kernel.launch"} | MANAGER_SPANS
+    units = sorted((s for s in got if s.name == "worker.unit"), key=lambda s: s.start_ns)
+    assert [(s.attrs["row_start"], s.attrs["ahead"]) for s in units] == [(0, False), (5, True), (10, True)]
+    assert all(s.parent is None for s in units)
+    for a, b in zip(units, units[1:]):
+        assert a.start_ns < b.start_ns < a.end_ns < b.end_ns  # b was queued before a was delivered
+    for u in units:
+        kids = sorted((s for s in got if s.parent == u.id), key=lambda s: s.start_ns)
+        assert [s.name for s in kids] == ["kernel.launch", "unit.wait", "unit.deliver"]
+        assert all(u.start_ns <= s.start_ns <= s.end_ns <= u.end_ns and s.thread == u.thread for s in kids)
 
 
 def test_a_table_pack_is_a_span_under_its_launch_and_a_count():
