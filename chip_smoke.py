@@ -167,8 +167,8 @@ Phases, in order; any failure exits non-zero before the result line:
    e. fails on a JobFailed event, a job error, a retry round, a native
       library that did not load, a scheduler core that did not load, a
       job's round not on the native core (or not closed exactly once), or
-      a node that does not exit 0 when stopped; prints whether ``msgpack``
-      is installed (the wire does not use it);
+      a node that does not exit 0 when stopped; prints the version of
+      ``msgpack``, which writes and reads the wire's frames;
 18. the device mesh (``flux_tpu_torch.parallel``), over the card repeated,
    each path with the launch counts set to 0 just before and read just
    after:
@@ -200,13 +200,7 @@ Phases, in order; any failure exits non-zero before the result line:
       ``sampler_debug`` on the card writes the CPU's eight files;
    f. each configuration as a (2,1) mesh launches it, timed beside its
       bound and its plain version, for the kernels line;
-19. the repo-level entry points, each a subprocess from the checkout's root
-   as a user runs it, which must exit 0: ``python -m flux_tpu_torch.bench
-   --out`` a temporary directory (its seven cells present, none with an error,
-   every gate on the JAX package's stored results passed, nothing under
-   ``artifacts/`` changed), ``python -m flux_tpu_torch.perf --reps 3``
-   (demo2 at 16384 spp) and ``python -m flux_tpu_torch.mse_check --seeds
-   0``; prints the three JSON lines;
+19. (none: the other phases keep the numbers PERF.md cites them by);
 20. the f64 audit: every configuration (the 18 rows of PERF.md §6) at its
    scene's full frame, depth 5, seed 0, through ``Renderer.render_rows_sum_range
    (0, H, s, 1)`` (one launch a sample index, with stats for the stats rows;
@@ -257,7 +251,6 @@ import concurrent.futures
 import contextlib
 import ctypes
 import hashlib
-import importlib.util
 import json
 import os
 import signal
@@ -269,13 +262,14 @@ import threading
 import time
 from dataclasses import replace
 
+import msgpack
 import numpy as np
 import torch
 
 from flux_tpu_torch.camera import camera_tensors, primary_rays
 from flux_tpu_torch.color import luminance, max_to_one
 from flux_tpu_torch.checkpoint import ProgressiveRenderer, load_checkpoint
-from flux_tpu_torch import bench, genscene, meshgen, native, sampler_debug, sched, wire
+from flux_tpu_torch import genscene, meshgen, native, sampler_debug, sched, wire
 from flux_tpu_torch.artifacts import (
     ADAPTIVE_P99, ADAPTIVE_P99_ATOL, ADAPTIVE_SPP, CORNELL_GATES, HEADLINE_GATES, MIS_MSE, MIS_MSE_RTOL, NEE_GATES,
     SPHERES512_GATES, adaptive_gates, failed, frame_gates, frame_vs_png, mis_gates,
@@ -288,7 +282,6 @@ from flux_tpu_torch.ops import build, scene_kernel
 from flux_tpu_torch.ops.intersect import SCAN_BLOCK, Intersector, scan_layout, tri_layout
 from flux_tpu_torch.ops.nee import extract_lights
 from flux_tpu_torch.ops.scene_kernel import render_block_scene
-from flux_tpu_torch.ops import sweep_kernel
 from flux_tpu_torch.oracle import adjudicate, off_oracle, oracle_render, precision_audit
 from flux_tpu_torch.ops.sweep_kernel import (
     FluxLights,
@@ -297,7 +290,6 @@ from flux_tpu_torch.ops.sweep_kernel import (
     flops_lower_bound,
     launch_plan,
     n_counts,
-    pack_scene,
     render_block_sweep,
 )
 from flux_tpu_torch.parallel import MeshRenderer, init_multihost, make_mesh, slot_launch
@@ -1944,8 +1936,8 @@ def trace_kernels(path: str) -> dict:
 def phase_job_path(dev, out_dir: str, card: str) -> dict:
     check(native.available(), f"the native host code did not load: {native.load_error}")
     check(native_sched_available(), "the native scheduler core did not load")
-    log(f"native host code and scheduler core: {native.library_path()}; msgpack installed: "
-        f"{importlib.util.find_spec('msgpack') is not None} (the wire does not use it)")
+    log(f"native host code and scheduler core: {native.library_path()}; the wire's msgpack: "
+        f"{'.'.join(map(str, msgpack.version))}")
     scene = lambda name: os.path.join(HERE, "scenes", f"{name}.yml")
     results = {}
 
@@ -2449,55 +2441,6 @@ def mesh_kernel_entries(dev, main_launches: dict, path_launches: dict, checks: d
     return entries
 
 
-# ---- phase 19: the bench, perf and mse_check -----------------------------------
-
-
-def entry_point(argv: list, timeout: int) -> tuple:
-    """``python -m`` ``argv`` from the checkout's root: the last line of its
-    standard output as JSON, and its seconds; it must exit 0."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", *argv], cwd=HERE, capture_output=True, text=True,
-                          timeout=timeout)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        log(proc.stdout[-4000:], proc.stderr[-8000:])
-    check(proc.returncode == 0, f"python -m {' '.join(argv)} exited {proc.returncode}")
-    lines = proc.stdout.strip().splitlines()
-    check(bool(lines), f"python -m {' '.join(argv)} printed nothing")
-    return json.loads(lines[-1]), seconds
-
-
-def stored_digests() -> dict:
-    """sha256 of every file of artifacts/ but the XLA cache (the JAX
-    package's stored results)."""
-    root = os.path.join(HERE, "artifacts")
-    return {name: hashlib.sha256(open(os.path.join(root, name), "rb").read()).hexdigest()
-            for name in sorted(os.listdir(root)) if os.path.isfile(os.path.join(root, name))}
-
-
-def phase_entry_points(out_dir: str, card: str) -> dict:
-    """Phase 19: the bench, the warm-process perf harness and the MSE check."""
-    before = stored_digests()
-    line, secs = entry_point(["flux_tpu_torch.bench", "--out", out_dir], 900)
-    log(f"bench (python -m flux_tpu_torch.bench, {secs:.1f} s with the process's start):", json.dumps(line))
-    check(stored_digests() == before, "the bench changed a file under artifacts/")
-    check(line["metric"] == bench.HEADLINE and line["devices"] == 1 and line["card"] == card,
-          f"bench: the line's metric, devices or card: {line['metric']}, {line['devices']}, {line['card']}")
-    cells = {bench.HEADLINE: line, **line["extra"]}
-    check(set(cells) == set(bench.CELLS), f"bench: cells {sorted(cells)}")
-    for name, entry in cells.items():
-        check("error" not in entry, f"bench cell {name}: {entry.get('error')}")
-        check(isinstance(entry["gates"], list) and len(entry["gates"]) > 1, f"bench cell {name}: no gates")
-        check_gates(entry["gates"], f"bench cell {name}")
-    perf, perf_s = entry_point(["flux_tpu_torch.perf", "--reps", "3"], 600)
-    log(f"perf (python -m flux_tpu_torch.perf --reps 3, demo2 16384 spp, {perf_s:.1f} s):", json.dumps(perf))
-    check(len(perf["times"]) == 3 and perf["card"] == card and perf["checksum"] > 0, "perf: bad line")
-    mse, mse_s = entry_point(["flux_tpu_torch.mse_check", "--seeds", "0"], 600)
-    log(f"mse_check (python -m flux_tpu_torch.mse_check --seeds 0, {mse_s:.1f} s):", json.dumps(mse))
-    check(mse["spp"] == 256 and len(mse["mse_per_seed"]) == 1 and 0 < mse["mse_mean"] < 1, "mse_check: bad line")
-    return {"bench": line, "perf": perf, "mse_check": mse}
-
-
 # ---- phase 20: the f64 audit ----------------------------------------------------
 
 # Configuration -> (scene, root); depth 5, seed 0, the scene's full frame,
@@ -2987,8 +2930,6 @@ def main(argv=None) -> int:
         with phase_timer("18 f the mesh launches measured"):
             kernels += mesh_kernel_entries(dev, mesh_main["result"]["meshes"]["2x1"]["launches"],
                                            mesh_paths["launches"], mesh_checks)
-    with phase_timer("19 the bench, perf and mse_check"), tempfile.TemporaryDirectory() as tmp:
-        phase_entry_points(tmp, card)
     with phase_timer("20 the f64 audit"):
         phase_f64_audit(dev, kernels)
     with phase_timer("21 b the scheduler core"):

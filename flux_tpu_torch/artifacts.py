@@ -3,10 +3,9 @@
 ``artifacts/`` in a checkout holds what the JAX package's ``bench.py`` and
 quality scripts rendered on a TPU: 8-bit PNG frames, and in
 ``bench_extra.json`` the estimator values of its paths (image statistics
-of sample streams that the port reproduces bit for bit, not speeds). The
-port's bench (``flux_tpu_torch.bench``), its MSE check and ``chip_smoke.py``
-hold their frames and values to these, at the gates below. Nothing here
-writes under ``artifacts/``.
+of sample streams that the port reproduces bit for bit, not speeds).
+``chip_smoke.py`` holds the port's frames and values to these, at the gates
+below. Nothing here writes under ``artifacts/``.
 """
 
 from __future__ import annotations
@@ -71,7 +70,7 @@ def frame_vs_png(img: np.ndarray, png: str) -> dict:
 
 
 def gate(what: str, value, limit, passed: bool) -> dict:
-    """A gate's result as it stands in a bench entry."""
+    """A gate's result: what it checks, the value, the limit and whether it passed."""
     return {"gate": what, "value": value, "limit": limit, "passed": bool(passed)}
 
 

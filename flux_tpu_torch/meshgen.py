@@ -261,7 +261,7 @@ def mesh_scene_yaml(
     return yaml.safe_dump(doc, sort_keys=False)
 
 
-def _main(argv: Sequence[str] | None = None) -> int:
+def main(argv: Sequence[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(
@@ -294,4 +294,4 @@ def _main(argv: Sequence[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(_main())
+    raise SystemExit(main())

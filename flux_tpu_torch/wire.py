@@ -7,14 +7,10 @@ big-endian length followed by one msgpack map, and row blocks travel as raw
 float32 bytes and a shape, zlib-deflated where the peer advertised the
 ``zlib-rows`` capability.
 
-The msgpack codec is the package's own (:func:`packb`, :func:`unpackb`), for
-the types the protocol sends: dict, list or tuple, str, bytes, int, float,
-bool and None. It writes the bytes that ``msgpack.packb(obj,
-use_bin_type=True)`` writes (the smallest form of each int, str and
-container length; floats as float64) and reads what that writes as
-``msgpack.unpackb(data, raw=False)`` does, so the frames of either package
-are the other's. It has one code path, whether ``msgpack`` is installed or
-not.
+Frames are written by ``msgpack.packb(obj, use_bin_type=True)``, as in
+``flux_tpu``, and read by :func:`unpackb`, which refuses what the protocol
+never sends: ext types (the timestamp among them), map keys that are not
+str or bytes, and bytes past the value.
 """
 
 from __future__ import annotations
@@ -23,6 +19,7 @@ import socket
 import struct
 import zlib
 
+import msgpack
 import numpy as np
 
 __all__ = ["send_msg", "recv_msg", "encode_rows", "decode_rows", "packb", "unpackb"]
@@ -30,192 +27,23 @@ __all__ = ["send_msg", "recv_msg", "encode_rows", "decode_rows", "packb", "unpac
 _LEN = struct.Struct(">I")
 MAX_FRAME = 1 << 30
 
-_B = struct.Struct(">B")
-_H = struct.Struct(">H")
-_I = struct.Struct(">I")
-_Q = struct.Struct(">Q")
-_b = struct.Struct(">b")
-_h = struct.Struct(">h")
-_i = struct.Struct(">i")
-_q = struct.Struct(">q")
-_f = struct.Struct(">f")
-_d = struct.Struct(">d")
 
-
-def _pack_len(out: bytearray, n: int, fix_tag: int, fix_max: int, tags, what: str) -> None:
-    """A length header: the fix form up to ``fix_max``, else the first of
-    the 8-, 16- and 32-bit forms (``tags``; None where there is none) that
-    holds ``n``."""
-    if n <= fix_max:
-        out.append(fix_tag | n)
-    elif tags[0] is not None and n <= 0xFF:
-        out += bytes((tags[0], n))
-    elif n <= 0xFFFF:
-        out.append(tags[1])
-        out += _H.pack(n)
-    elif n <= 0xFFFFFFFF:
-        out.append(tags[2])
-        out += _I.pack(n)
-    else:
-        raise ValueError(f"{what} too large for msgpack: {n}")
-
-
-def _pack_int(out: bytearray, v: int) -> None:
-    if 0 <= v < 0x80:
-        out.append(v)
-    elif -0x20 <= v < 0:
-        out += _b.pack(v)
-    elif 0x80 <= v <= 0xFF:
-        out.append(0xCC)
-        out.append(v)
-    elif -0x80 <= v < 0:
-        out.append(0xD0)
-        out += _b.pack(v)
-    elif 0xFF < v <= 0xFFFF:
-        out.append(0xCD)
-        out += _H.pack(v)
-    elif -0x8000 <= v < -0x80:
-        out.append(0xD1)
-        out += _h.pack(v)
-    elif 0xFFFF < v <= 0xFFFFFFFF:
-        out.append(0xCE)
-        out += _I.pack(v)
-    elif -0x80000000 <= v < -0x8000:
-        out.append(0xD2)
-        out += _i.pack(v)
-    elif 0xFFFFFFFF < v <= 0xFFFFFFFFFFFFFFFF:
-        out.append(0xCF)
-        out += _Q.pack(v)
-    elif -0x8000000000000000 <= v < -0x80000000:
-        out.append(0xD3)
-        out += _q.pack(v)
-    else:
-        raise OverflowError(f"int too large for msgpack: {v}")
-
-
-def _pack(out: bytearray, obj) -> None:
-    if obj is None:
-        out.append(0xC0)
-    elif obj is True:
-        out.append(0xC3)
-    elif obj is False:
-        out.append(0xC2)
-    elif isinstance(obj, int):
-        _pack_int(out, int(obj))
-    elif isinstance(obj, float):
-        out.append(0xCB)
-        out += _d.pack(obj)
-    elif isinstance(obj, str):
-        data = obj.encode("utf-8")
-        _pack_len(out, len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB), "str")
-        out += data
-    elif isinstance(obj, (bytes, bytearray, memoryview)):
-        data = bytes(obj)
-        _pack_len(out, len(data), 0, -1, (0xC4, 0xC5, 0xC6), "bytes")
-        out += data
-    elif isinstance(obj, (list, tuple)):
-        _pack_len(out, len(obj), 0x90, 15, (None, 0xDC, 0xDD), "array")
-        for item in obj:
-            _pack(out, item)
-    elif isinstance(obj, dict):
-        _pack_len(out, len(obj), 0x80, 15, (None, 0xDE, 0xDF), "map")
-        for k, v in obj.items():
-            _pack(out, k)
-            _pack(out, v)
-    else:
-        raise TypeError(f"can not serialize {type(obj).__name__!r} object")
+def _refuse_ext(code: int, data: bytes):
+    raise ValueError(f"msgpack ext type {code} is not part of the protocol")
 
 
 def packb(obj) -> bytes:
-    """The msgpack bytes of ``obj`` (those of ``msgpack.packb(obj,
-    use_bin_type=True)``)."""
-    out = bytearray()
-    _pack(out, obj)
-    return bytes(out)
-
-
-# Fixed-width scalars: tag -> (struct, size).
-_SCALARS = {
-    0xCA: _f, 0xCB: _d,
-    0xCC: _B, 0xCD: _H, 0xCE: _I, 0xCF: _Q,
-    0xD0: _b, 0xD1: _h, 0xD2: _i, 0xD3: _q,
-}
-# Length-prefixed forms: tag -> (kind, struct of the length).
-_SIZED = {
-    0xD9: ("str", _B), 0xDA: ("str", _H), 0xDB: ("str", _I),
-    0xC4: ("bin", _B), 0xC5: ("bin", _H), 0xC6: ("bin", _I),
-    0xDC: ("array", _H), 0xDD: ("array", _I),
-    0xDE: ("map", _H), 0xDF: ("map", _I),
-}
-
-
-class _Reader:
-    def __init__(self, data):
-        self.buf = memoryview(data)
-        self.pos = 0
-
-    def take(self, n: int) -> memoryview:
-        end = self.pos + n
-        if end > len(self.buf):
-            raise ValueError("msgpack data truncated")
-        view = self.buf[self.pos : end]
-        self.pos = end
-        return view
-
-    def unpack(self, st: struct.Struct):
-        return st.unpack(self.take(st.size))[0]
-
-    def read(self):
-        tag = self.take(1)[0]
-        if tag <= 0x7F:
-            return tag
-        if tag >= 0xE0:
-            return tag - 0x100
-        if 0x80 <= tag <= 0x8F:
-            return self._map(tag & 0x0F)
-        if 0x90 <= tag <= 0x9F:
-            return [self.read() for _ in range(tag & 0x0F)]
-        if 0xA0 <= tag <= 0xBF:
-            return str(self.take(tag & 0x1F), "utf-8")
-        if tag == 0xC0:
-            return None
-        if tag == 0xC2:
-            return False
-        if tag == 0xC3:
-            return True
-        if tag in _SCALARS:
-            return self.unpack(_SCALARS[tag])
-        if tag in _SIZED:
-            kind, st = _SIZED[tag]
-            n = self.unpack(st)
-            if kind == "str":
-                return str(self.take(n), "utf-8")
-            if kind == "bin":
-                return bytes(self.take(n))
-            if kind == "array":
-                return [self.read() for _ in range(n)]
-            return self._map(n)
-        raise ValueError(f"unsupported msgpack type 0x{tag:02x}")
-
-    def _map(self, n: int) -> dict:
-        out = {}
-        for _ in range(n):
-            k = self.read()
-            if not isinstance(k, (str, bytes)):
-                raise ValueError(f"{type(k).__name__} is not allowed for map key")
-            out[k] = self.read()
-        return out
+    """The msgpack bytes of ``obj``: the smallest form of each int, str and
+    container length, floats as float64, bytes as bin."""
+    return msgpack.packb(obj, use_bin_type=True)
 
 
 def unpackb(data) -> object:
-    """Decode one msgpack value, as ``msgpack.unpackb(data, raw=False)``
-    does: str as str, bin as bytes, arrays as lists; map keys must be str
-    or bytes; trailing bytes are an error."""
-    r = _Reader(data)
-    obj = r.read()
-    if r.pos != len(r.buf):
-        raise ValueError("extra data after the msgpack value")
-    return obj
+    """Decode one msgpack value: str as str, bin as bytes, arrays as lists.
+    Every failure is a ``ValueError``. msgpack decodes its timestamp type
+    without calling ``ext_hook``; ``max_ext_len=0`` refuses it, and every
+    other ext with a payload, before that."""
+    return msgpack.unpackb(data, raw=False, strict_map_key=True, ext_hook=_refuse_ext, max_ext_len=0)
 
 
 def send_msg(sock: socket.socket, obj: dict) -> None:

@@ -1,8 +1,12 @@
 """Package-level checks of the port: its import boundary, its device rules,
-the kernel wrapper's CPU route, the scene loader and the CLI's output."""
+the kernel wrapper's CPU route, the scene loader, the CLI's output, the
+entry points the documents name, and the gates on the JAX package's stored
+results."""
 
 import dataclasses
 import fnmatch
+import importlib
+import json
 import os
 import re
 import subprocess
@@ -18,7 +22,7 @@ import yaml
 
 from flux_tpu.image import ppm_bytes as j_ppm_bytes
 from flux_tpu.scene import load_scene as j_load_scene
-from flux_tpu_torch import bench, cli, f64_audit, genscene, mse_check, oracle, perf
+from flux_tpu_torch import artifacts, cli, f64_audit, genscene, oracle
 from flux_tpu_torch.camera import camera_tensors
 from flux_tpu_torch.ops import build, scene_kernel
 from flux_tpu_torch.ops.scene_kernel import render_block_scene
@@ -29,6 +33,10 @@ from flux_tpu_torch.scene import MaterialData, MaterialKind, TriangleData, compi
 REPO = Path(__file__).resolve().parent.parent
 SCENES = sorted((REPO / "scenes").glob("*.yml"))
 PORT_FILES = sorted((REPO / "flux_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+# The documents that give the port's commands.
+COMMAND_DOCS = [REPO / "README.md", REPO / ".claude" / "skills" / "verify" / "SKILL.md"]
+DOCUMENTED_MODULES = sorted({m for doc in COMMAND_DOCS
+                             for m in re.findall(r"python3?\s+-m\s+flux_tpu_torch\.(\w+)", doc.read_text())})
 
 
 def test_import_boundary_in_a_fresh_process():
@@ -44,7 +52,7 @@ def test_import_boundary_in_a_fresh_process():
         "             or m == 'flux_tpu' or m.startswith('flux_tpu.'))\n"
         "assert not bad, bad\n"
         "assert len(names) >= 15, names\n"
-        "new = {'flux_tpu_torch.' + m for m in ('artifacts', 'bench', 'perf', 'mse_check', 'oracle', 'f64_audit')}\n"
+        "new = {'flux_tpu_torch.' + m for m in ('artifacts', 'oracle', 'f64_audit')}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -133,9 +141,9 @@ def _tiny_scene(tmp_path, w=16, h=12):
 
 
 def test_entry_points_need_the_card_by_default(tmp_path):
-    """Renderer(), the CLI, the bench, the perf harness, the MSE check, the
-    float64 oracle and the precision audit pick CUDA and raise when it is
-    absent; they never carry on silently on the CPU, and write nothing."""
+    """Renderer(), the CLI, the float64 oracle and the precision audit pick
+    CUDA and raise when it is absent; they never carry on silently on the
+    CPU, and write nothing."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     sd = load_scene(str(_tiny_scene(tmp_path)))
@@ -144,16 +152,13 @@ def test_entry_points_need_the_card_by_default(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main([str(_tiny_scene(tmp_path)), "--output-dir", str(tmp_path)])
     assert not (tmp_path / "demo2.ppm").exists()
-    for main, argv in ((bench.main, ["--out", str(tmp_path / "bench")]), (perf.main, ["--root", "1"]),
-                       (mse_check.main, ["--root", "1"]),
-                       (f64_audit.main, [str(_tiny_scene(tmp_path)), "--root", "1"])):
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        f64_audit.main([str(_tiny_scene(tmp_path)), "--root", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         oracle.oracle_render(sd, 1, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         oracle.precision_audit(sd, 1, 2)
-    assert not (tmp_path / "bench").exists()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["tiny.yml"]
 
 
 def _with_triangle(sd, kind):
@@ -279,3 +284,31 @@ def test_cli_run_reports_its_output_and_band_loop(tmp_path):
     assert ran["out"] == str(out / "demo2.ppm") and (out / "demo2.ppm").exists()
     assert ran["samples"] == 16 * 12 * 4
     assert ran["band_seconds"] > 0
+
+
+@pytest.mark.parametrize("name", DOCUMENTED_MODULES)
+def test_documented_commands_resolve(name):
+    """Every ``python -m flux_tpu_torch.<module>`` of README.md and the
+    verify skill names a module of the package with a ``main`` that running
+    it as a script calls."""
+    module = importlib.import_module(f"flux_tpu_torch.{name}")
+    assert callable(getattr(module, "main", None)), f"flux_tpu_torch.{name} has no main"
+    _, guard, body = Path(module.__file__).read_text().partition('\nif __name__ == "__main__":\n')
+    assert guard and re.search(r"\bmain\(\)", body), f"python -m flux_tpu_torch.{name} does not call main"
+
+
+def test_published_gates_hold_the_stored_values():
+    """The gates take the JAX package's stored values: the adaptive stop and
+    the MIS MSE of bench_extra.json, and a frame against its own PNG."""
+    extra = json.loads((artifacts.ARTIFACTS / "bench_extra.json").read_text())
+    stop, mis = extra["demo2_adaptive_stop"], extra["demo3_physical_mis_16spp"]
+    assert (artifacts.ADAPTIVE_SPP, artifacts.ADAPTIVE_P99) == (stop["spp_done"], stop["p99_rel_stderr"])
+    assert artifacts.MIS_MSE == mis["mse_vs_1024spp"]
+    assert not artifacts.failed(artifacts.adaptive_gates(768, 0.11674197))
+    assert artifacts.failed(artifacts.adaptive_gates(832, 0.11674197))
+    assert artifacts.failed(artifacts.mis_gates(1.03 * artifacts.MIS_MSE))
+    frame = artifacts.png_levels("demo5_cornell_2304spp.png") / 255.0
+    stats = artifacts.frame_vs_png(frame, "demo5_cornell_2304spp.png")
+    assert stats["max_abs_levels"] == 0
+    assert not artifacts.failed(artifacts.frame_gates(stats, artifacts.CORNELL_GATES, "demo5_cornell_2304spp.png"))
+    assert artifacts.failed(artifacts.frame_gates({**stats, "mean_abs_levels": 3.5}, artifacts.CORNELL_GATES, "x"))

@@ -3,8 +3,9 @@ identical inputs made from a numpy seed: the Morton order and the block
 table bit for bit, the scan and the carried folds on a few hundred rays,
 the scan against the sweep inside the port bit for bit, the packed tables
 the CUDA kernel reads, the golden of the 96-sphere field through
-``Renderer(device="cpu")``, and per-sample radiance through the scan
-against the float64 oracle.
+``Renderer(device="cpu")``, per-sample radiance through the scan against
+the float64 oracle, and the scan against a float64 nearest-sphere hit at
+257 and 1024 spheres.
 
 The JAX functions run eagerly (``jax.disable_jit()`` where they use
 ``lax.scan``): no render program is compiled. XLA's CPU code may contract a
@@ -32,9 +33,11 @@ from flux_tpu.scene import compile_scene as j_compile_scene
 from flux_tpu.scene import load_scene as j_load_scene
 from flux_tpu_torch import cli, genscene
 from flux_tpu_torch.ops import aabb, scene_kernel
+from flux_tpu_torch.ops.intersect import Intersector, scan_layout
 from flux_tpu_torch.ops.sweep_kernel import pack_scene
 from flux_tpu_torch.render import SCAN_AUTO_THRESHOLD, Renderer, finalize, render_block
-from flux_tpu_torch.scene import MaterialData, MaterialKind, SphereData
+from flux_tpu_torch.scene import MaterialData, MaterialKind, SphereData, compile_scene
+from flux_tpu_torch.vec import Vec3
 from tests.test_torch_ops import _compare_hits, carry_scene, jv, np_, tv, unit_dirs
 
 # The modules, not the functions of the same name that the packages export.
@@ -571,3 +574,41 @@ def test_scan_carry_through_the_scene_kernels_wrapper():
     g_scan, _ = scene_kernel.pack_geom(r.scene, r.isect, None, "cpu")
     assert g_carry.scan == g_scan.scan == 1 and bytes(g_carry) == bytes(g_scan)
     assert scene_kernel.table_bytes(carry, None, 25, r.scene) == scene_kernel.table_bytes(r.isect, None, 25, r.scene)
+
+
+def _nearest_sphere_f64(centers, radii, o, d, t_min=5e-4):
+    """The sweep's sphere test (shapes.rs:176-211) in float64 over every
+    sphere: the nearest t past t_min, and its sphere."""
+    oc = o[None, :, :] - centers[:, None, :]
+    a = (d * d).sum(-1)[None]
+    b_half = (oc * d[None]).sum(-1)
+    c = (oc * oc).sum(-1) - (radii ** 2)[:, None]
+    disc = b_half * b_half - a * c
+    e = np.sqrt(np.maximum(disc, 0.0))
+    t_near = (-b_half - e) / a
+    t = np.where(t_near > t_min, t_near, (-b_half + e) / a)
+    t = np.where((disc >= 0.0) & (t > t_min), t, np.inf)
+    return t.min(axis=0), t.argmin(axis=0)
+
+
+@pytest.mark.parametrize("n, seed", [(257, 2), (1024, 3)])
+def test_scan_matches_a_float64_nearest_sphere_hit(n, seed):
+    """The scan (Intersector in scan mode, its plain version) on 4096 rays
+    through sphere_field(n), at tests/test_scan_parity.py's gates: t within
+    2e-4 where a sphere wins, and the same sphere on more than 99.9% of
+    rays."""
+    scene = compile_scene(genscene.sphere_field(n, seed), "cpu")
+    isect = Intersector(layout=scan_layout(scene), mode="scan")
+    rng = np.random.default_rng(seed + 100)
+    o = rng.uniform(-30, 30, size=(4096, 3)).astype(np.float32)
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cols = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, k])) for k in range(3)))
+    hit = isect(scene, cols(o), cols(d))
+    t_ref, i_ref = _nearest_sphere_f64(scene.sphere_center.double().numpy(), scene.sphere_radius.double().numpy(),
+                                       o.astype(np.float64), d.astype(np.float64))
+    t_got, shape = hit.t.numpy(), hit.shape.numpy()
+    check = np.isfinite(t_ref) & (shape < scene.num_spheres)
+    assert check.mean() > 0.5
+    np.testing.assert_allclose(t_got[check], t_ref[check], rtol=2e-4, atol=2e-4)
+    assert (shape[check] == i_ref[check]).mean() > 0.999

@@ -152,7 +152,7 @@ def test_meshgen_equals_jax(tmp_path):
     for a, b in zip(meshgen.load_obj(str(obj)), jmeshgen.load_obj(str(obj))):
         np.testing.assert_array_equal(a, b)
     out = tmp_path / "ico.yml"
-    assert meshgen._main(["-k", "icosphere", "-s", "1", "--width", "32", "--height", "24", "-o", str(out)]) == 0
+    assert meshgen.main(["-k", "icosphere", "-s", "1", "--width", "32", "--height", "24", "-o", str(out)]) == 0
     assert sum(isinstance(s, TriangleData) for s in load_scene(str(out)).shapes) == 80
 
 
