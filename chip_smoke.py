@@ -1569,10 +1569,21 @@ def raw_scene(lib, st: dict, counts=None, **skips) -> torch.Tensor:
                             planes=sc.num_planes <= swk.MAX_PLANES)
     geom, keep = sk.pack_geom(sc, st["isect"], st["lights"], sc.device, **skips)
     split = swk.launch_plan(n_pix, st["n_samples"]).split
-    err = lib.flux_scene_render(
-        out.data_ptr(), None if counts is None else counts.data_ptr(), ctypes.byref(packed), ctypes.byref(geom),
-        int(stats), int(nee), int(st["physical"]), n_pix, st["w"], st["h"], st["row0"], 1, 0, st["n_samples"],
-        1 << 32, 0, st["root"], 5, split, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream()
+    counts_ptr = None if counts is None else counts.data_ptr()
+    tail = (int(stats), int(nee), int(st["physical"]), n_pix, st["w"], st["h"], st["row0"], 1, 0, st["n_samples"],
+            1 << 32, 0, st["root"], 5, split, stream.cuda_stream)
+    if hasattr(sk, "send_records"):
+        # The scene record goes up apart from the launch, through the
+        # package's record of what the library holds.
+        pb = submodule(st["pkg"], "ops.build")
+        with pb.LAUNCH_LOCK:
+            sk.send_records(lib, torch.cuda.current_device(), stream, packed, sent=pb.SENT)
+            err = lib.flux_scene_render(out.data_ptr(), counts_ptr, ctypes.byref(geom), *tail)
+            if err == 0:
+                pb.SENT.launched(lib, torch.cuda.current_device(), stream)
+    else:
+        err = lib.flux_scene_render(out.data_ptr(), counts_ptr, ctypes.byref(packed), ctypes.byref(geom), *tail)
     check(err == 0, f"raw scene launch failed: CUDA error {err}")
     del keep
     return out

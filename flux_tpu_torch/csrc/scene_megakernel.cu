@@ -193,23 +193,29 @@ int flux_scene_blocks_per_sm(const FluxGeom* geom, int with_stats, int nee, int 
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// Uploads the scene record and launches the instantiation <with_stats, nee,
-// physical, counts != null> of the launch's geometry policy on `stream`, in blocks of 256 / split pixels ×
-// split threads. `out` is a device buffer of 3 × n_pix floats (4 × n_pix
+// Queues on `stream` the upload of the scene record into this library's
+// __constant__ memory. A launch reads what the uploads queued before it left
+// there; the caller orders an upload after the launches that may still read
+// the record it overwrites. Returns a cudaError_t, 0 on success.
+int flux_scene_upload(const FluxScene* scene, void* stream) {
+  return (int)cudaMemcpyToSymbolAsync(c_scene, scene, sizeof(FluxScene), 0, cudaMemcpyHostToDevice,
+                                      (cudaStream_t)stream);
+}
+
+// Launches the instantiation <with_stats, nee, physical, counts != null> of
+// the launch's geometry policy on `stream`, in blocks of 256 / split pixels ×
+// split threads, over the scene record uploaded before it (flux_scene_upload).
+// `out` is a device buffer of 3 × n_pix floats (4 × n_pix
 // with stats; channel-major); `counts` is null or a device buffer of
 // FLUX_SCENE_N_COUNTS × n_pix uint32 that receives each pixel's work
 // counters (not with stats). Returns a cudaError_t, 0 on success.
-int flux_scene_render(float* out, uint32_t* counts, const FluxScene* scene, const FluxGeom* geom,
-                      int with_stats, int nee, int physical, int n_pix, int img_w, int img_h,
-                      int row0, int row_stride, uint32_t s0, uint32_t n_samples,
+int flux_scene_render(float* out, uint32_t* counts, const FluxGeom* geom, int with_stats, int nee, int physical,
+                      int n_pix, int img_w, int img_h, int row0, int row_stride, uint32_t s0, uint32_t n_samples,
                       unsigned long long s_limit, uint32_t seed, uint32_t root, int max_depth, int split,
                       void* stream) {
   const SceneKernel k = pick_kernel(with_stats, nee, physical, counts != nullptr, launch_geo(*geom, nee));
   if (k == nullptr || !plan_ok(split, max_depth)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemcpyToSymbolAsync(c_scene, scene, sizeof(FluxScene), 0, cudaMemcpyHostToDevice, st);
-  if (err != cudaSuccess) return (int)err;
   const int n_px = FLUX_BLOCK_THREADS / split;
   const dim3 block((unsigned)n_px, (unsigned)split);
   const dim3 grid((unsigned)((n_pix + n_px - 1) / n_px));

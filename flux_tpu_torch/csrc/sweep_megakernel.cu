@@ -289,31 +289,42 @@ int flux_sweep_blocks_per_sm(int with_stats, int nee, int physical, int count, i
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// Uploads the scene (and, when `lights` is not null, the light set) and
-// launches the instantiation <with_stats, lights != null, physical, counts
-// != null> on `stream`, in blocks of 256 / split pixels × split threads.
+// Queues on `stream` the upload of the scene record, where `scene` is not
+// null, and of the light set, where `lights` is not null, into this
+// library's __constant__ memory. A launch reads what the uploads queued
+// before it left there; the caller orders an upload after the launches that
+// may still read the record it overwrites. Returns a cudaError_t, 0 on
+// success.
+int flux_sweep_upload(const FluxScene* scene, const FluxLights* lights, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (scene != nullptr) {
+    const cudaError_t err =
+        cudaMemcpyToSymbolAsync(c_scene, scene, sizeof(FluxScene), 0, cudaMemcpyHostToDevice, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (lights != nullptr) {
+    const cudaError_t err =
+        cudaMemcpyToSymbolAsync(c_lights, lights, sizeof(FluxLights), 0, cudaMemcpyHostToDevice, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// Launches the instantiation <with_stats, nee, physical, counts != null> on
+// `stream`, in blocks of 256 / split pixels × split threads, over the scene
+// (and with `nee` the light set) uploaded before it (flux_sweep_upload).
 // `out` is a device buffer of 3 × n_pix floats (4 × n_pix with stats;
 // channel-major); `counts` is null or a device buffer of NCOUNT × n_pix
 // uint32 that receives each pixel's work counters (NCOUNT is FLUX_N_COUNTS
 // with NEE or physical, else 1: bounces only; not with stats). Returns
 // a cudaError_t, 0 on success.
-int flux_sweep_render(float* out, uint32_t* counts, const FluxScene* scene,
-                      const FluxLights* lights, int with_stats, int physical, int n_pix,
+int flux_sweep_render(float* out, uint32_t* counts, int nee, int with_stats, int physical, int n_pix,
                       int img_w, int img_h, int row0, int row_stride, uint32_t s0,
                       uint32_t n_samples, unsigned long long s_limit, uint32_t seed,
                       uint32_t root, int max_depth, int split, void* stream) {
-  const int nee = lights != nullptr;
   const SweepKernel k = pick_kernel(with_stats, nee, physical, counts != nullptr);
   if (k == nullptr || !plan_ok(split, max_depth)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemcpyToSymbolAsync(c_scene, scene, sizeof(FluxScene), 0, cudaMemcpyHostToDevice, st);
-  if (err != cudaSuccess) return (int)err;
-  if (lights != nullptr) {
-    err = cudaMemcpyToSymbolAsync(c_lights, lights, sizeof(FluxLights), 0,
-                                  cudaMemcpyHostToDevice, st);
-    if (err != cudaSuccess) return (int)err;
-  }
   const int n_px = FLUX_BLOCK_THREADS / split;
   const dim3 block((unsigned)n_px, (unsigned)split);
   const dim3 grid((unsigned)((n_pix + n_px - 1) / n_px));

@@ -28,7 +28,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "LIBRARIES", "build", "build_many", "load", "BUILD_LOG", "LAUNCH_LOCK"]
+__all__ = ["NVCC_FLAGS", "LIBRARIES", "build", "build_many", "load", "BUILD_LOG", "LAUNCH_LOCK", "SentRecords",
+           "SENT"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,11 +48,91 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_LOG: dict = {}
 _LOADED: dict = {}
 
-# Held by a wrapper around its library call and its launch count. A call
-# writes the library's __constant__ scene record on the stream and then
-# launches the kernel; two threads' calls (two renderers of one process,
-# say a local worker and a node's) must not interleave between the two.
+# Held by a wrapper around its upload of the library's __constant__ records
+# (SENT), its launch and its launch count; two threads' calls (two renderers
+# of one process, say a local worker and a node's) must not interleave
+# between the check of what the records hold and the launch that reads them.
 LAUNCH_LOCK = threading.Lock()
+
+
+class SentRecords:
+    """What each kernel library's ``__constant__`` records hold on each
+    device, and the launches that may still read them, so that a wrapper
+    uploads a record only where it changed and never under a kernel that
+    reads it. Launches of one library may run on several streams at once
+    (``Renderer.queue_rows`` takes two in turn). ``new_event`` makes the
+    events it records (``torch.cuda.Event`` by default). Use it under
+    ``LAUNCH_LOCK``."""
+
+    def __init__(self, new_event=None):
+        self._new_event = new_event
+        # (library handle, device index) -> {"records": {name: bytes},
+        # "uploaded": (stream handle, event) of the last upload still to be
+        # waited on, "in_flight": {stream handle: event behind its last launch}}
+        self._by_key: dict = {}
+
+    def _event(self):
+        if self._new_event is None:
+            import torch
+
+            return torch.cuda.Event()
+        return self._new_event()
+
+    def _state(self, lib, device: int) -> dict:
+        key = (lib._handle, device)
+        if key not in self._by_key:
+            self._by_key[key] = {"records": {}, "uploaded": None, "in_flight": {}}
+        return self._by_key[key]
+
+    def send(self, lib, device: int, stream, records: dict, upload) -> bool:
+        """Queue on ``stream`` the upload of those of ``records`` (symbol
+        name -> packed bytes) that ``lib``'s ``__constant__`` memory on
+        ``device`` does not hold, through ``upload(names)``, which returns a
+        CUDA error (a RuntimeError here where it is not 0); True where
+        anything was sent. Before it overwrites a record, ``stream`` waits on
+        each other stream's last launch of the library (:meth:`launched`)
+        still running. Where nothing is sent, ``stream`` waits on the last
+        upload where that was queued on another stream and has not ended, so
+        that no launch reads a record before it arrives."""
+        st = self._state(lib, device)
+        here = stream.cuda_stream
+        changed = [name for name, data in records.items() if st["records"].get(name) != data]
+        if not changed:
+            if st["uploaded"] is not None:
+                on, ev = st["uploaded"]
+                if ev.query():
+                    st["uploaded"] = None
+                elif on != here:
+                    stream.wait_event(ev)
+            return False
+        for on, ev in st["in_flight"].items():
+            if on != here and not ev.query():
+                stream.wait_event(ev)
+        err = upload(changed)
+        if err != 0:
+            for name in changed:  # what the device holds now is not known
+                st["records"].pop(name, None)
+            raise RuntimeError(f"__constant__ upload of {changed} failed: CUDA error {err}")
+        st["records"].update((name, records[name]) for name in changed)
+        ev = self._event()
+        ev.record(stream)
+        st["uploaded"] = (here, ev)
+        return True
+
+    def launched(self, lib, device: int, stream) -> None:
+        """Note a launch of ``lib`` on ``device`` just queued on ``stream``:
+        an upload on another stream waits for it to end."""
+        st = self._state(lib, device)
+        ev = self._event()
+        ev.record(stream)
+        st["in_flight"] = {on: e for on, e in st["in_flight"].items() if not e.query()}
+        st["in_flight"][stream.cuda_stream] = ev
+
+
+# The process's record of what the kernel libraries' __constant__ memory
+# holds (each library is loaded once, in load(), and its records are written
+# by the wrappers alone).
+SENT = SentRecords()
 
 
 def _build_dir() -> Path:

@@ -55,6 +55,7 @@ from .sweep_kernel import MAX_PLANES, FluxScene, check_launch, check_split, pack
 
 __all__ = [
     "render_block_scene",
+    "send_records",
     "FluxGeom",
     "declare",
     "config_name",
@@ -480,11 +481,12 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flux_scene_blocks_per_sm.argtypes = [ctypes.POINTER(FluxGeom)] + [ctypes.c_int] * 6
     lib.flux_scene_error_string.restype = ctypes.c_char_p
     lib.flux_scene_error_string.argtypes = [ctypes.c_int]
+    lib.flux_scene_upload.restype = ctypes.c_int
+    lib.flux_scene_upload.argtypes = [ctypes.POINTER(FluxScene), ctypes.c_void_p]  # scene, stream
     lib.flux_scene_render.restype = ctypes.c_int
     lib.flux_scene_render.argtypes = [
         ctypes.c_void_p,  # out
         ctypes.c_void_p,  # counts (may be null)
-        ctypes.POINTER(FluxScene),
         ctypes.POINTER(FluxGeom),
         ctypes.c_int,  # with_stats
         ctypes.c_int,  # nee
@@ -577,6 +579,15 @@ def pack_geom(scene: SceneTensors, isect: Intersector, lights: Optional[LightTen
     return geom, keep
 
 
+def send_records(lib, device: int, stream, scene: FluxScene, sent: build.SentRecords = build.SENT) -> bool:
+    """Upload the scene record on ``stream`` where ``lib``'s ``__constant__``
+    memory on ``device`` does not hold it yet
+    (:class:`~flux_tpu_torch.ops.build.SentRecords`); True where it was
+    sent. Call under ``build.LAUNCH_LOCK``."""
+    return sent.send(lib, device, stream, {"scene": bytes(scene)},
+                     lambda names: lib.flux_scene_upload(ctypes.byref(scene), stream.cuda_stream))
+
+
 def render_block_scene(
     scene: SceneTensors,
     cam: CameraTensors,
@@ -614,7 +625,9 @@ def render_block_scene(
     its samples (``COUNT_NAMES``), including the blocks a perfect skip would
     still have had to fold, from the counting instantiation, without
     ``with_stats``. The launch's plan is kept as
-    ``render_block_scene.last_plan``."""
+    ``render_block_scene.last_plan``, and whether it uploaded the scene
+    record (:func:`send_records`) as ``render_block_scene.last_uploaded``.
+    The launch is queued on the device's current stream."""
     dev = scene.device
     check_split(split)
     if not set(skips) <= _SKIPS:
@@ -665,16 +678,23 @@ def render_block_scene(
                        with_stats, lights is not None, physical, work_counts is not None, max_depth, split)
     name = launch_config(scene, isect, with_stats, lights, physical)
     with build.LAUNCH_LOCK, torch.cuda.device(dev):
+        index, stream = torch.cuda.current_device(), torch.cuda.current_stream(dev)
+        uploaded = send_records(lib, index, stream, packed)
         err = lib.flux_scene_render(
-            out.data_ptr(), counts_ptr, ctypes.byref(packed), ctypes.byref(geom), int(with_stats),
-            int(lights is not None), int(physical), n_pix, img_w, img_h, int(row0), int(row_stride),
-            int(s0) & MASK, int(n_samples), limit, int(seed) & MASK, int(root), int(max_depth),
-            plan.split, torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), counts_ptr, ctypes.byref(geom), int(with_stats), int(lights is not None),
+            int(physical), n_pix, img_w, img_h, int(row0), int(row_stride), int(s0) & MASK, int(n_samples),
+            limit, int(seed) & MASK, int(root), int(max_depth), plan.split, stream.cuda_stream,
         )
         if err == 0:
+            build.SENT.launched(lib, index, stream)
+            # The tables stay cached beside their layouts, and may have been
+            # made on another stream: none is freed under this launch.
+            for table in keep:
+                table.record_stream(stream)
             render_block_scene.launches[name] += 1
             render_block_scene.last_plan = plan
-    del keep  # the tables stay cached beside their layouts
+            render_block_scene.last_uploaded = uploaded
+    del keep
     if err != 0:
         raise RuntimeError(
             f"scene megakernel launch failed: CUDA error {err} "
@@ -687,6 +707,7 @@ def render_block_scene(
 # "sweep+tri+nee+trilight+physical") since the count was last cleared.
 render_block_scene.launches = collections.Counter()
 render_block_scene.last_plan = None
+render_block_scene.last_uploaded = None
 
 
 # float32 operations per unit of work, counted from csrc/scene_megakernel.cu

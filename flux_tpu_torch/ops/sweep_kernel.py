@@ -36,6 +36,7 @@ from .nee import LightTensors
 
 __all__ = [
     "render_block_sweep",
+    "send_records",
     "pack_scene",
     "FluxScene",
     "FluxLights",
@@ -225,12 +226,17 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flux_sweep_blocks_per_sm.argtypes = [ctypes.c_int] * 6
     lib.flux_sweep_error_string.restype = ctypes.c_char_p
     lib.flux_sweep_error_string.argtypes = [ctypes.c_int]
+    lib.flux_sweep_upload.restype = ctypes.c_int
+    lib.flux_sweep_upload.argtypes = [
+        ctypes.POINTER(FluxScene),  # null: not sent
+        ctypes.POINTER(FluxLights),  # null: not sent
+        ctypes.c_void_p,  # stream
+    ]
     lib.flux_sweep_render.restype = ctypes.c_int
     lib.flux_sweep_render.argtypes = [
         ctypes.c_void_p,  # out
         ctypes.c_void_p,  # counts (may be null)
-        ctypes.POINTER(FluxScene),
-        ctypes.POINTER(FluxLights),  # null without NEE
+        ctypes.c_int,  # nee
         ctypes.c_int,  # with_stats
         ctypes.c_int,  # physical
         ctypes.c_int,  # n_pix
@@ -339,6 +345,23 @@ def n_counts(nee: bool, physical: bool) -> int:
     return N_COUNTS if (nee or physical) else 1
 
 
+def send_records(lib, device: int, stream, scene: FluxScene, lights: Optional[FluxLights],
+                 sent: build.SentRecords = build.SENT) -> bool:
+    """Upload, on ``stream``, those of the scene record and (with NEE) the
+    light record that ``lib``'s ``__constant__`` memory on ``device`` does not
+    hold yet (:class:`~flux_tpu_torch.ops.build.SentRecords`); True where
+    either was sent. Call under ``build.LAUNCH_LOCK``."""
+    records = {"scene": bytes(scene)}
+    if lights is not None:
+        records["lights"] = bytes(lights)
+
+    def upload(names):
+        return lib.flux_sweep_upload(ctypes.byref(scene) if "scene" in names else None,
+                                     ctypes.byref(lights) if "lights" in names else None, stream.cuda_stream)
+
+    return sent.send(lib, device, stream, records, upload)
+
+
 def render_block_sweep(
     scene: SceneTensors,
     cam: CameraTensors,
@@ -373,7 +396,10 @@ def render_block_sweep(
     (bounces) for K1 and K2, ``(N_COUNTS, n_rows·img_w)`` with ``lights`` or
     ``physical`` (rows by ``COUNT_NAMES``; see :func:`flops_lower_bound`),
     from the counting instantiation, without ``with_stats``. The launch's
-    :class:`LaunchPlan` is kept as ``render_block_sweep.last_plan``."""
+    :class:`LaunchPlan` is kept as ``render_block_sweep.last_plan``, and
+    whether it uploaded the scene or light record (:func:`send_records`) as
+    ``render_block_sweep.last_uploaded``. The launch is queued on the
+    device's current stream."""
     dev = scene.device
     check_split(split)
     if scene.num_triangles:
@@ -416,20 +442,23 @@ def render_block_sweep(
         counts_ptr = bounce_counts.data_ptr()
     lib = _library()
     packed = pack_scene(scene, cam)
-    packed_lights = None if lights is None else ctypes.byref(pack_lights(lights))
+    packed_lights = None if lights is None else pack_lights(lights)
     limit = (1 << 32) if s_limit is None else int(s_limit) & MASK
     plan = plan_launch(lib.flux_sweep_blocks_per_sm, dev, n_pix, n_samples, with_stats, lights is not None,
                        physical, bounce_counts is not None, max_depth, split)
     with build.LAUNCH_LOCK, torch.cuda.device(dev):
+        index, stream = torch.cuda.current_device(), torch.cuda.current_stream(dev)
+        uploaded = send_records(lib, index, stream, packed, packed_lights)
         err = lib.flux_sweep_render(
-            out.data_ptr(), counts_ptr, ctypes.byref(packed), packed_lights, int(with_stats),
-            int(physical), n_pix, img_w, img_h, int(row0), int(row_stride), int(s0) & MASK,
-            int(n_samples), limit, int(seed) & MASK, int(root), int(max_depth),
-            plan.split, torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), counts_ptr, int(lights is not None), int(with_stats), int(physical), n_pix, img_w,
+            img_h, int(row0), int(row_stride), int(s0) & MASK, int(n_samples), limit, int(seed) & MASK,
+            int(root), int(max_depth), plan.split, stream.cuda_stream,
         )
         if err == 0:
+            build.SENT.launched(lib, index, stream)
             render_block_sweep.launches[config_name(with_stats, lights is not None, physical)] += 1
             render_block_sweep.last_plan = plan
+            render_block_sweep.last_uploaded = uploaded
     if err != 0:
         raise RuntimeError(
             f"sweep megakernel launch failed: CUDA error {err} "
@@ -442,6 +471,7 @@ def render_block_sweep(
 # since the count was last cleared; .total() counts them all.
 render_block_sweep.launches = collections.Counter()
 render_block_sweep.last_plan = None
+render_block_sweep.last_uploaded = None
 
 
 # float32 operations per unit of work, counted from csrc/sweep_megakernel.cu

@@ -25,6 +25,8 @@ samples of a pixel are summed.
 from __future__ import annotations
 
 import contextlib
+import functools
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -45,7 +47,8 @@ from .samplers.warps import to_poisson_disc
 from .scene import SceneData, SceneTensors, compile_scene
 from .vec import Vec3
 
-__all__ = ["render_block", "finalize", "plan_chunks", "resolve_device", "SceneState", "Renderer"]
+__all__ = ["render_block", "finalize", "plan_chunks", "resolve_device", "SceneState", "Renderer", "LaunchStreams",
+           "launch_streams"]
 
 # Sphere count above which the Renderer picks the blocked scan over the
 # sweep. flux_tpu chose 64 for XLA's compile time (flux_tpu/render.py:50-52),
@@ -181,6 +184,43 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+class LaunchStreams:
+    """The streams of one card on which :meth:`Renderer.queue_rows` queues
+    its bands: two launch streams, taken in turn, so that the blocks of a
+    band's kernel may start on the SMs that the last blocks of the band
+    before it leave idle, where the two would drain one after the other on
+    one stream; and a readback stream of higher priority for each band's
+    :func:`finalize` and copy, which would otherwise wait behind the
+    thousands of blocks of the kernel queued after it."""
+
+    def __init__(self, device: torch.device):
+        self.launch = (torch.cuda.Stream(device), torch.cuda.Stream(device))
+        self.readback = torch.cuda.Stream(device, priority=-1)
+        self._last = [None, None]  # the event behind each launch stream's last launch
+        self._turn = 0
+        self._lock = threading.Lock()
+
+    def take(self):
+        """(index, stream, overlapped) for the next launch: the launch stream
+        whose turn it is, and whether the other's last kernel was still
+        running."""
+        with self._lock:
+            k, self._turn = self._turn, self._turn ^ 1
+            other = self._last[k ^ 1]
+        return k, self.launch[k], other is not None and not other.query()
+
+    def launched(self, k: int, event) -> None:
+        """Note ``event``, recorded behind a launch on launch stream ``k``."""
+        with self._lock:
+            self._last[k] = event
+
+
+@functools.cache
+def launch_streams(index: int) -> LaunchStreams:
+    """The :class:`LaunchStreams` of card ``index``, made at its first band."""
+    return LaunchStreams(torch.device("cuda", index))
 
 
 @dataclass(frozen=True, eq=False)
@@ -354,6 +394,15 @@ class Renderer:
         card, the sample chunks on the CPU), so that each of its pixels
         sums its samples in the band's order and the band's bits come
         back."""
+        return self._sum_range(row0, n_rows, s0, n_samples, with_stats, row_stride=row_stride, s_limit=s_limit,
+                               band_rows=band_rows)
+
+    def _sum_range(self, row0: int, n_rows: int, s0: int, n_samples: int, with_stats: bool = False, *,
+                   row_stride: int = 1, s_limit: Optional[int] = None, band_rows: Optional[int] = None,
+                   attrs=()) -> torch.Tensor:
+        """:meth:`render_rows_sum_range`, with ``attrs`` ((key, value)
+        pairs) set on each ``kernel.launch`` span beside the configuration
+        and whether the launch uploaded the kernel's scene record."""
         from .ops.scene_kernel import render_block_scene
         from .ops.sweep_kernel import render_block_sweep
 
@@ -371,6 +420,8 @@ class Renderer:
             with span("kernel.launch") if self.device.type == "cuda" else contextlib.nullcontext() as sp:
                 if sp:
                     sp.set("config", self._launch_config(with_stats))
+                    for key, value in attrs:
+                        sp.set(key, value)
                 part = kernel(
                     self.scene,
                     self.cam,
@@ -390,6 +441,8 @@ class Renderer:
                     physical=self.physical,
                     **extra,
                 )
+                if sp:
+                    sp.set("uploaded", kernel.last_uploaded)
             acc = part if acc is None else acc + part
         return acc
 
@@ -406,25 +459,44 @@ class Renderer:
         return self.wait_rows(self.queue_rows(row0, n_rows))
 
     def queue_rows(self, row0: int, n_rows: int):
-        """The first half of :meth:`render_rows`: on the card, queue on the
-        device's current stream the band's launch, :func:`finalize`, a copy
-        of the pixels into page-locked host memory and an event behind them,
-        and return without waiting for any of it; on the CPU, render the
-        band. Returns the handle that :meth:`wait_rows` takes.
+        """The first half of :meth:`render_rows`: on the card, queue the
+        band's launch on the next of the card's two launch streams
+        (:class:`LaunchStreams`), behind the work queued on the device's
+        current stream, then on the readback stream, behind the launch,
+        :func:`finalize`, a copy of the pixels into page-locked host memory
+        and an event, and return without waiting for any of it; on the CPU,
+        render the band. Returns the handle that :meth:`wait_rows` takes.
 
-        The host buffer comes from PyTorch's caching host allocator: it goes
-        back to the cache once the array :meth:`wait_rows` returned is gone,
-        and serves a later band, so steady work allocates no page-locked
-        memory."""
-        acc = self.render_rows_sum(row0, n_rows)
-        with span("unit.readback"):
+        The band's kernel may thus start while the kernel of a band queued
+        before it still runs; its ``kernel.launch`` span says on which
+        launch stream (``stream``) and whether the other's last kernel was
+        running (``overlapped``). The host buffer comes from PyTorch's caching
+        host allocator: it goes back to the cache once the array
+        :meth:`wait_rows` returned is gone, and serves a later band, so
+        steady work allocates no page-locked memory."""
+        if self.device.type != "cuda":
+            acc = self.render_rows_sum(row0, n_rows)
+            with span("unit.readback"):
+                return finalize(acc, root=self.root), None
+        streams = launch_streams(self.device.index if self.device.index is not None
+                                 else torch.cuda.current_device())
+        k, launch, overlapped = streams.take()
+        launch.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(launch):
+            acc = self._sum_range(row0, n_rows, 0, self.root * self.root,
+                                  attrs=(("stream", k), ("overlapped", overlapped)))
+            launched = torch.cuda.Event()
+            launched.record(launch)
+        streams.launched(k, launched)
+        readback = streams.readback
+        with span("unit.readback"), torch.cuda.stream(readback):
+            readback.wait_event(launched)
+            acc.record_stream(readback)  # made on the launch stream, read here
             rows = finalize(acc, root=self.root)
-            if self.device.type != "cuda":
-                return rows, None
             host = torch.empty_strided(rows.size(), rows.stride(), dtype=rows.dtype, pin_memory=True)
             host.copy_(rows, non_blocking=True)
             copied = torch.cuda.Event()
-            copied.record(torch.cuda.current_stream(self.device))
+            copied.record(readback)
         return host, copied
 
     @staticmethod

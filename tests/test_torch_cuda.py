@@ -688,8 +688,8 @@ def test_a_workers_units_two_deep_give_the_sequential_bits(card, tmp_path, name,
     blocking readback of the band's sum (``finalize(...).cpu()``); ``ahead`` on
     every unit but a frame's first; the page-locked host buffers taken from
     the cache, not allocated a unit. At the Cornell cell's 1024 spp, each
-    unit's launch (the scene upload with it) is queued while the kernel of
-    the unit before it still runs."""
+    unit's launch is queued while the kernel of the unit before it still
+    runs."""
     import json
 
     from flux_tpu_torch import metrics
@@ -715,7 +715,8 @@ def test_a_workers_units_two_deep_give_the_sequential_bits(card, tmp_path, name,
     worker = LocalWorker(device=card)
     manager = RenderManager([worker.handle()])
     frames = []
-    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    # The stats are empty until the process's first page-locked allocation.
+    allocs = torch.cuda.host_memory_stats().get("num_host_alloc", 0)
     try:
         with metrics.profile_trace(str(tmp_path)) as prof:
             for cfg in cfgs:
@@ -726,7 +727,7 @@ def test_a_workers_units_two_deep_give_the_sequential_bits(card, tmp_path, name,
     finally:
         manager.stop()
         worker.stop()
-    allocs = torch.cuda.host_memory_stats()["num_host_alloc"] - allocs
+    allocs = torch.cuda.host_memory_stats().get("num_host_alloc", 0) - allocs
     # A block waits, once freed, for the kernels queued before its release:
     # a few of each unit size serve every unit of the three frames.
     assert allocs <= 6 < 3 * n_units, allocs
@@ -753,3 +754,131 @@ def test_a_workers_units_two_deep_give_the_sequential_bits(card, tmp_path, name,
         if units[k]["args"]["ahead"]:
             before = kernels[k - 1]
             assert launches[k]["ts"] + launches[k]["dur"] < before["ts"] + before["dur"], k
+
+
+def _sequential(r, row0, n_rows):
+    """A band's pixels rendered on the current stream and read back there."""
+    return finalize(r.render_rows_sum(row0, n_rows), root=r.root).cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, root, nee", [("demo5", 8, True), ("demo2", 4, False)], ids=["cornell nee", "demo2"])
+def test_bands_queued_on_two_launch_streams_give_the_sequential_bits(card, name, root, nee):
+    """Every 50-row band of a frame queued at once through
+    ``Renderer.queue_rows`` (the two launch streams in turn, a dozen kernels
+    in flight), then waited on: each band bitwise its sum rendered and read
+    back on the current stream; the ``kernel.launch`` spans alternate between
+    the streams, and none sends the scene record the frame's first band
+    sent."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flux_tpu_torch import metrics
+
+    sd = load_scene(os.path.join(SCENES, f"{name}.yml"))
+    r = Renderer(sd, root, 5, seed=21, device=card, nee=nee)
+    bands = [(row0, min(50, r.height - row0)) for row0 in range(0, r.height, 50)]
+    assert len(bands) >= 11
+    r.render_rows(*bands[0])  # sends the scene record and packs the tables
+    metrics.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pending = [r.queue_rows(row0, n) for row0, n in bands]
+        got = [r.wait_rows(p) for p in pending]
+    launches = [s for s in metrics.spans() if s.name == "kernel.launch"]
+    assert len(launches) == len(bands)
+    streams = [s.attrs["stream"] for s in launches]
+    assert all(a != b for a, b in zip(streams, streams[1:])), streams
+    assert not any(s.attrs["uploaded"] for s in launches)
+    for (row0, n), band in zip(bands, got):
+        assert (band.view("int32") == _sequential(r, row0, n).view("int32")).all(), row0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first, second, nee", [("demo2", "demo1", False), ("demo5", "mesh_ico", True)],
+                         ids=["sweep kernel", "scene kernel"])
+def test_two_scenes_in_turn_give_each_its_own_bits(card, first, second, nee):
+    """The upload join. Bands of two scenes of one kernel library queued in
+    turn without a wait, the first scene's at 16384 or 1024 spp, so that its
+    kernel runs while the second's record is queued: each band sends its
+    scene's record, which waits for the other scene's kernel, and every band
+    is bitwise its scene's own band rendered alone. Then jobs of the two
+    scenes and of the first again, back to back through one LocalWorker:
+    each frame bitwise its scene's band loop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flux_tpu_torch import metrics
+    from flux_tpu_torch.job import Job, JobConfiguration, JobID
+    from flux_tpu_torch.manager import RenderManager, RowsReady
+    from flux_tpu_torch.workers import LocalWorker
+
+    sds = [load_scene(os.path.join(SCENES, f"{n}.yml")) for n in (first, second)]
+    rs = [Renderer(sds[0], 128 if first == "demo2" else 32, 5, seed=5, device=card, nee=nee),
+          Renderer(sds[1], 2, 5, seed=6, device=card, nee=nee)]
+    assert rs[0].uses_sweep_kernel == rs[1].uses_sweep_kernel
+    order = [(rs[0], 100), (rs[1], 100), (rs[0], 150), (rs[1], 150)]
+    metrics.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pending = [r.queue_rows(row0, 50) for r, row0 in order]
+        got = [Renderer.wait_rows(p) for p in pending]
+    launches = [s for s in metrics.spans() if s.name == "kernel.launch"]
+    # The first scene's record may be there from an earlier render.
+    assert [s.attrs["uploaded"] for s in launches][1:] == [True] * 3
+    for (r, row0), band in zip(order, got):
+        assert (band.view("int32") == _sequential(r, row0, 50).view("int32")).all(), (r.scene_data is sds[0], row0)
+
+    class Frame:
+        def __init__(self, out):
+            self.pixels = torch.full((out.image_height, out.image_width, 3), float("nan")).numpy()
+
+        def put(self, ev):
+            if isinstance(ev, RowsReady):
+                u = ev.result.work_unit
+                self.pixels[u.row_start : u.row_end + 1] = ev.result.rows
+
+    jobs = [(sds[0], 1), (sds[1], 2), (sds[0], 3)]
+    cfgs = [JobConfiguration(sample_root=2, max_trace_depth=5, rows_per_work_unit=64, seed=seed, nee=nee)
+            for _, seed in jobs]
+    worker = LocalWorker(device=card)
+    manager = RenderManager([worker.handle()])
+    frames = []
+    try:
+        for (sd, _), cfg in zip(jobs, cfgs):
+            frame = Frame(sd.output_settings)
+            handle = manager.schedule_job(sd, cfg, frame)
+            assert handle.wait(timeout=120) and handle.ok, handle.error
+            frames.append(frame.pixels)
+    finally:
+        manager.stop()
+        worker.stop()
+    for (sd, _), cfg, pixels in zip(jobs, cfgs, frames):
+        r = Renderer(sd, cfg.sample_root, cfg.max_trace_depth, seed=cfg.seed, device=card, nee=nee)
+        for u in Job(JobID(0, 0), sd, cfg).work_units():
+            want = _sequential(r, u.row_start, u.num_rows)
+            assert (pixels[u.row_start : u.row_end + 1].view("int32") == want.view("int32")).all(), (cfg, u)
+
+
+@pytest.mark.cuda
+def test_a_traced_job_starts_each_units_kernel_before_the_last_one_ends(card, tmp_path):
+    """demo2 at 4096 spp in three units of 200 rows through the CLI's job
+    path, traced: each unit's K1 starts, on the other launch stream, before
+    the K1 of the unit before it has ended; the second and third units'
+    ``kernel.launch`` spans are ``overlapped`` and send no scene record."""
+    import json
+
+    from flux_tpu_torch import cli
+
+    ran = cli.run([os.path.join(SCENES, "demo2.yml"), "-r", "64", "-d", "5", "-R", "200",
+                   "--output-dir", str(tmp_path), "--profile-dir", str(tmp_path / "prof")])
+    assert ran["error"] is None
+    with open(ran["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+                      and "sweep_megakernel" in e.get("name", "")), key=lambda e: e["ts"])
+    assert len(kernels) == 3
+    for before, k in zip(kernels, kernels[1:]):
+        assert k["ts"] < before["ts"] + before["dur"], (before, k)
+        assert k["tid"] != before["tid"]
+    launches = sorted((e for e in events if e.get("cat") == "flux" and e["name"] == "kernel.launch"),
+                      key=lambda e: e["ts"])
+    assert [e["args"]["overlapped"] for e in launches] == [False, True, True]
+    assert [e["args"]["uploaded"] for e in launches[1:]] == [False, False]
+    assert launches[0]["args"]["stream"] != launches[1]["args"]["stream"] != launches[2]["args"]["stream"]
